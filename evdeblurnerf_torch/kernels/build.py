@@ -1,0 +1,122 @@
+"""Build the hand-written CUDA kernels into one shared library and load it.
+
+``nvcc`` compiles every ``evdeblurnerf_torch/csrc/*.cu`` for Hopper
+(``sm_90a``) into a library with a plain C interface, loaded with
+``ctypes``. Nothing includes PyTorch's headers, so a cold build takes
+seconds, not minutes. The build runs at first use, from the sources in the
+checkout, into ``build/evdeblurnerf_torch/`` beside the package; the file
+name carries a digest of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused.
+
+A missing ``nvcc`` or a failed compile raises with nvcc's own output:
+there is no fallback to the plain versions here or in any wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "evdeblurnerf_torch"
+DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+# every pointer and the stream are c_void_p: a bare Python int would be
+# passed as a 32-bit C int and cut the address
+SIGNATURES = {
+    # x, idx, out, rows, S, S2, device, stream
+    "evdn_permute_lanes": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # cdf, bins, below, above, 4 outputs, rows, M, Mb, N, device, stream
+    "evdn_cdf_take": (_P,) * 8 + (_L, _I, _I, _I, _I, _P),
+    # xyz, 3 packed planes, 3 packed lines, out, n,
+    # (H, W, D, C) x 3 projections, device, stream
+    "evdn_triplane_features": (_P,) * 8 + (_L,) + (_I,) * 12 + (_I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources():
+    """The CUDA sources and headers the library is built from."""
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``DEFAULT_CUDA_HOME/bin/nvcc``, else
+    ``nvcc`` on ``PATH``; raises when there is none."""
+    looked = []
+    if os.environ.get("CUDA_HOME"):
+        looked.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    looked.append(DEFAULT_CUDA_HOME / "bin" / "nvcc")
+    for cand in looked:
+        if cand.is_file():
+            return str(cand)
+    on_path = shutil.which("nvcc")
+    if on_path:
+        return on_path
+    raise RuntimeError(
+        "nvcc not found (looked in " + ", ".join(map(str, looked))
+        + " and on PATH): the CUDA kernels of evdeblurnerf_torch need the "
+        "CUDA toolkit to build; set CUDA_HOME to its root")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libevdn_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless a build of these exact sources exists;
+    returns its path. nvcc's output (``-Xptxas -v``: registers, shared
+    memory and spills of every kernel) is kept beside it as ``.log``."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}: "
+            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+    # atomic publish: a concurrent build of the same sources either
+    # finds the finished file or replaces it with an identical one
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call in this process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.evdn_error_string.argtypes = [ctypes.c_int]
+            lib.evdn_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib

@@ -1,0 +1,200 @@
+"""PDRF coarse-to-fine voxel fields (mode=c2f), eval forward.
+
+Counterpart of ``evdeblurnerf_tpu/models/voxnerf.py`` (ref:
+networks/pdrf/voxnerf.py): TensoRF-style factored tri-plane/line
+appearance grids plus small sigma/color MLPs, with the two heads
+
+* CRR (``composite_feature=True``): composite the geometry features over
+  the ray, then run the color MLP once per ray;
+* FVR (``composite_feature=False``): per-sample color, then composite.
+
+Parameters carry the reference's names and layouts (``app_plane.{i}``
+[1, C, H, W], ``app_line.{i}`` [1, C, D, 1], ``basis_mat``,
+``sigma_net.{l}``, ``color_net.{l}``), so a reference
+``network_state_dict`` loads strictly. The grids are neighbour-packed once,
+when the module is built and again whenever a state dict is loaded into it,
+into non-persistent buffers that :meth:`VoxelNeRF.sample` reads through
+kernel K4.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import compositing, fused_sample, lane_shuffle, triplane
+from .embedding import positional_encoding, positional_encoding_dim
+from .layers import ACTIVATIONS, make_linear
+
+
+def compute_grid_size(aabb_min, aabb_max, n_voxels) -> Tuple[int, int, int]:
+    """Voxel count -> integer per-axis grid resolution, computed in float64
+    and truncated like torch ``.long()`` (ref: voxnerf.py:86-93)."""
+    extent = (np.asarray(aabb_max, np.float64)
+              - np.asarray(aabb_min, np.float64))
+    voxel_size = float((extent.prod() / n_voxels) ** (1.0 / 3.0))
+    return tuple(int(x) for x in (extent / voxel_size))
+
+
+class VoxelNeRF(nn.Module):
+    """One field: the coarse or the fine stage of the c2f model.
+
+    ``in_app_dim`` is the width of the sampled features the sigma net
+    reads: ``app_dim`` for the coarse field, coarse plus fine ``app_dim``
+    for the fine field, which also reads the coarse grids at its points.
+    """
+
+    def __init__(self, aabb, n_voxels: int,
+                 app_n_comp: Sequence[int] = (64, 16, 16), app_dim: int = 32,
+                 in_app_dim: int | None = None, num_layers: int = 2,
+                 hidden_dim: int = 64, geo_feat_dim: int = 15,
+                 num_layers_color: int = 3, hidden_dim_color: int = 64,
+                 add_bias_color: bool = False, multires: int = 10,
+                 multires_views: int = 4, composite_feature: bool = True,
+                 rgb_activate: str = "relu", sigma_activate: str = "relu",
+                 app_actfn: str = "none", render_rmnearplane: int = 0,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.register_buffer(
+            "aabb", torch.tensor(aabb, dtype=torch.float32, device=device),
+            persistent=False)
+        self.grid_size = compute_grid_size(aabb[0], aabb[1], n_voxels)
+        self.app_dim = app_dim
+        self.multires = multires
+        self.multires_views = multires_views
+        self.composite_feature = composite_feature
+        self.rgb_activate = rgb_activate
+        self.sigma_activate = sigma_activate
+        self.app_actfn = app_actfn
+        self.render_rmnearplane = render_rmnearplane
+
+        grid = self.grid_size
+        planes, lines = [], []
+        for i in range(3):
+            m0, m1 = triplane.MAT_MODE[i]
+            vec = triplane.VEC_MODE[i]
+            shape_p = (1, app_n_comp[i], grid[m1], grid[m0])
+            shape_l = (1, app_n_comp[i], grid[vec], 1)
+            planes.append(nn.Parameter(0.1 * torch.randn(
+                shape_p, generator=generator, device=device)))
+            lines.append(nn.Parameter(0.1 * torch.randn(
+                shape_l, generator=generator, device=device)))
+        self.app_plane = nn.ParameterList(planes)
+        self.app_line = nn.ParameterList(lines)
+        self.basis_mat = make_linear(sum(app_n_comp), app_dim, "none",
+                                     generator, device)
+
+        in_app = app_dim if in_app_dim is None else in_app_dim
+        width = in_app + positional_encoding_dim(multires)
+        self.sigma_net = nn.ModuleList()
+        for l in range(num_layers):
+            out = 1 + geo_feat_dim if l == num_layers - 1 else hidden_dim
+            self.sigma_net.append(make_linear(width, out, "none", generator,
+                                              device))
+            width = out
+        width = geo_feat_dim + positional_encoding_dim(multires_views)
+        self.color_net = nn.ModuleList()
+        for l in range(num_layers_color):
+            out = 3 if l == num_layers_color - 1 else hidden_dim_color
+            self.color_net.append(make_linear(
+                width, out, "torch" if add_bias_color else "none", generator,
+                device))
+            width = out
+
+        self.pack_tables()
+        self.register_load_state_dict_post_hook(
+            lambda module, incompatible: module.pack_tables())
+
+    @torch.no_grad()
+    def pack_tables(self) -> None:
+        """Neighbour-pack the grids into the tables :meth:`sample` reads.
+        Runs at construction and after every ``load_state_dict``; call it
+        again after changing the grids in place."""
+        planes, lines, sizes = triplane.pack_grids(
+            [p[0] for p in self.app_plane], [l[0, :, :, 0] for l in
+                                             self.app_line])
+        for i in range(3):
+            self.register_buffer(f"packed_plane_{i}", planes[i],
+                                 persistent=False)
+            self.register_buffer(f"packed_line_{i}", lines[i],
+                                 persistent=False)
+        self.table_sizes = sizes
+
+    def normalize_coords(self, pts: torch.Tensor) -> torch.Tensor:
+        """World points -> [-1, 1] grid coords (ref: voxnerf.py:203-206)."""
+        inv_size = 2.0 / (self.aabb[1] - self.aabb[0])
+        return (pts - self.aabb[0]) * inv_size - 1.0
+
+    def sample(self, pts: torch.Tensor) -> torch.Tensor:
+        """World pts [..., 3] -> appearance features [..., app_dim]
+        (ref: voxnerf.py:132-151, 203-208), through kernel K4."""
+        shape = pts.shape[:-1]
+        xyz = self.normalize_coords(pts.reshape(-1, 3)).contiguous()
+        feats = fused_sample.triplane_features(
+            [getattr(self, f"packed_plane_{i}") for i in range(3)],
+            [getattr(self, f"packed_line_{i}") for i in range(3)],
+            self.table_sizes, xyz)
+        feats = self.basis_mat(feats)
+        return ACTIVATIONS[self.app_actfn](feats).reshape(*shape,
+                                                          self.app_dim)
+
+    def _mlp(self, layers: nn.ModuleList, h: torch.Tensor) -> torch.Tensor:
+        for l, layer in enumerate(layers):
+            h = layer(h)
+            if l != len(layers) - 1:
+                h = torch.relu(h)
+        return h
+
+    def forward(self, pts, viewdirs, fts, z_vals, rays_d, perm=None,
+                inv_perm=None):
+        """Field evaluation and compositing at eval (no sigma noise).
+
+        pts [R, S, 3]; viewdirs [R, 3]; fts [R, S, C] sampled features;
+        z_vals [R, S] sorted; rays_d [R, 3]. With ``perm`` [R, S] int32 the
+        per-sample inputs are in an unsorted order with ``z_vals[r, i] ==
+        z_cat[r, perm[r, i]]``: the field runs in that order and only the
+        compositing scalars move, through kernel K1 (sigma to depth order,
+        weights back). Returns (color [R, 3], depth [R], acc [R],
+        weights [R, S]) with weights in depth order.
+        """
+        R, S = pts.shape[0], pts.shape[1]
+        pe = positional_encoding(pts.reshape(R * S, 3), self.multires)
+        h = self._mlp(self.sigma_net,
+                      torch.cat([fts.reshape(R * S, -1), pe], -1))
+        feature = h[..., 1:]
+        sigma = h[..., 0].reshape(R, S)
+        sigma_act = ACTIVATIONS[self.sigma_activate]
+
+        rm_mask = None
+        if self.render_rmnearplane > 0:
+            rm_mask = compositing.rmnearplane_mask(z_vals,
+                                                   self.render_rmnearplane)
+        if perm is not None:
+            sigma = lane_shuffle.permute_lanes(sigma.contiguous(), perm)
+        weights = compositing.compute_weights(
+            sigma, z_vals, rays_d, sigma_act, rmnearplane_mask=rm_mask)
+        weights_cat = weights
+        if perm is not None:
+            weights_cat = lane_shuffle.permute_lanes(weights.contiguous(),
+                                                     inv_perm)
+
+        if self.composite_feature:
+            feat_act = ACTIVATIONS[self.rgb_activate](
+                feature.reshape(R, S, -1))
+            feat_ray = torch.sum(weights_cat[..., None] * feat_act, -2)
+            dirs_pe = positional_encoding(viewdirs, self.multires_views)
+            color = torch.sigmoid(self._mlp(
+                self.color_net, torch.cat([feat_ray, dirs_pe], -1)))
+        else:
+            dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(R * S, 3)
+            dirs_pe = positional_encoding(dirs, self.multires_views)
+            color_s = torch.sigmoid(self._mlp(
+                self.color_net, torch.cat([feature, dirs_pe], -1)))
+            color_s = ACTIVATIONS[self.rgb_activate](color_s.reshape(R, S, 3))
+            color = torch.sum(weights_cat[..., None] * color_s, -2)
+        depth = torch.sum(weights * z_vals, -1)
+        acc = torch.sum(weights, -1)
+        return color, depth, acc, weights

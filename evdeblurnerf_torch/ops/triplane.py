@@ -1,0 +1,175 @@
+"""TensoRF tri-plane / line factored-grid sampling: the plain versions.
+
+Counterpart of ``evdeblurnerf_tpu/ops/triplane.py`` (ref:
+networks/pdrf/voxnerf.py:132-151): bilinear interpolation with
+``align_corners=True`` semantics and zeros padding, in two forms:
+
+* unpacked :func:`grid_sample_2d` / :func:`grid_sample_1d` over the raw
+  [C, H, W] / [C, D] grids — four (two) row gathers per plane (line);
+* neighbour-packed :func:`triplane_features_packed`: each texel's
+  (y,x),(y,x+1),(y+1,x),(y+1,x+1) block is one [4C] row of the packed
+  plane (lines: (d),(d+1) in a [2C] row), so a point needs one row per
+  plane and per line. The packing is done once, when the weights are
+  loaded (:func:`pack_grids`).
+
+The packed form is the plain twin of kernel K4
+(``ops/fused_sample.py::triplane_features``), which the renderer calls.
+Conventions follow ``torch.nn.functional.grid_sample``: a coordinate pair
+(x, y) in [-1, 1] indexes (width, height) = (last, second-to-last) grid
+dims.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+# Plane/line axis assignment (ref: voxnerf.py:99-100).
+MAT_MODE = ((0, 1), (0, 2), (1, 2))
+VEC_MODE = (2, 1, 0)
+
+
+def grid_sample_2d(plane: torch.Tensor, x: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of ``plane`` [C, H, W] at (x, y) each [N] in [-1, 1].
+    align_corners=True, zeros padding. Returns [N, C]."""
+    C, H, W = plane.shape
+    fx = (x + 1.0) * 0.5 * (W - 1)
+    fy = (y + 1.0) * 0.5 * (H - 1)
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    wx1 = fx - x0
+    wy1 = fy - y0
+    plane_flat = plane.reshape(C, H * W).T                          # [H*W, C]
+    out = 0.0
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi = x0 + dx
+        yi = y0 + dy
+        w = (wx1 if dx else 1.0 - wx1) * (wy1 if dy else 1.0 - wy1)
+        valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        xi_c = torch.clamp(xi, 0, W - 1).long()
+        yi_c = torch.clamp(yi, 0, H - 1).long()
+        vals = plane_flat[yi_c * W + xi_c]                           # [N, C]
+        out = out + (w * valid.to(plane.dtype))[:, None] * vals
+    return out
+
+
+def grid_sample_1d(line: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Linear sample of ``line`` [C, D] at y [N] in [-1, 1] (the
+    reference's grid_sample over a [1, C, D, 1] grid with x pinned to 0).
+    Returns [N, C]."""
+    C, D = line.shape
+    fy = (y + 1.0) * 0.5 * (D - 1)
+    y0 = torch.floor(fy)
+    wy1 = fy - y0
+    line_t = line.T                                                  # [D, C]
+    out = 0.0
+    for dy in (0, 1):
+        yi = y0 + dy
+        w = wy1 if dy else 1.0 - wy1
+        valid = (yi >= 0) & (yi <= D - 1)
+        vals = line_t[torch.clamp(yi, 0, D - 1).long()]
+        out = out + (w * valid.to(line.dtype))[:, None] * vals
+    return out
+
+
+def triplane_features(planes: Sequence[torch.Tensor],
+                      lines: Sequence[torch.Tensor],
+                      xyz: torch.Tensor) -> torch.Tensor:
+    """Unpacked factored features: concat_i plane_i(xy) * line_i(z).
+    planes: 3 x [C_i, H_i, W_i]; lines: 3 x [C_i, D_i]; xyz [N, 3] in
+    [-1, 1]. Returns [N, sum(C_i)]."""
+    feats = []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        plane_feat = grid_sample_2d(planes[i], xyz[:, m0], xyz[:, m1])
+        line_feat = grid_sample_1d(lines[i], xyz[:, VEC_MODE[i]])
+        feats.append(plane_feat * line_feat)
+    return torch.cat(feats, -1)
+
+
+def pack_plane(plane: torch.Tensor) -> torch.Tensor:
+    """[C, H, W] -> [H*W, 4C] neighbour-packed rows (zeros past the +x and
+    +y edges)."""
+    p = plane.permute(1, 2, 0)                                   # [H, W, C]
+    p01 = torch.cat([p[:, 1:], torch.zeros_like(p[:, :1])], 1)       # (y, x+1)
+    top = torch.cat([p, p01], -1)                               # [H, W, 2C]
+    bot = torch.cat([top[1:], torch.zeros_like(top[:1])], 0)         # (y+1, .)
+    return torch.cat([top, bot], -1).reshape(p.shape[0] * p.shape[1], -1)
+
+
+def pack_line(line: torch.Tensor) -> torch.Tensor:
+    """[C, D] -> [D, 2C] neighbour-packed rows."""
+    p = line.T                                                       # [D, C]
+    p1 = torch.cat([p[1:], torch.zeros_like(p[:1])], 0)
+    return torch.cat([p, p1], -1)
+
+
+def pack_grids(planes: Sequence[torch.Tensor], lines: Sequence[torch.Tensor]):
+    """Pack the three planes and lines; returns (packed_planes, packed_lines,
+    sizes) with ``sizes[i] = (H_i, W_i, D_i)``."""
+    packed_planes = [pack_plane(p).contiguous() for p in planes]
+    packed_lines = [pack_line(l).contiguous() for l in lines]
+    sizes = tuple((int(planes[i].shape[1]), int(planes[i].shape[2]),
+                   int(lines[i].shape[1])) for i in range(3))
+    return packed_planes, packed_lines, sizes
+
+
+def _slot_weights(f: torch.Tensor, size: int):
+    """Base row index in [0, size-2] and the two slot weights of coordinate
+    f: the tent weights with zeros-padding validity, routed to the slot of
+    the packed (base, base+1) pair their texel lands in (see
+    ``evdeblurnerf_tpu/ops/triplane.py::_axis_setup``)."""
+    f0 = torch.floor(f)
+    frac = f - f0
+    base = torch.clamp(f0, 0, size - 2)
+    valid0 = ((f0 >= 0) & (f0 <= size - 1)).to(f.dtype)
+    valid1 = ((f0 + 1 >= 0) & (f0 + 1 <= size - 1)).to(f.dtype)
+    w0 = (1.0 - frac) * valid0
+    w1 = frac * valid1
+    off0 = f0 == base
+    return (base.long(), torch.where(off0, w0, w1),
+            torch.where(off0, w1, w0))
+
+
+def grid_sample_2d_packed(packed: torch.Tensor, H: int, W: int,
+                          x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample from a packed plane [H*W, 4C]: one row per point.
+    Same weights and validity as :func:`grid_sample_2d`; the slot
+    factoring reorders the f32 sums (~1e-6 relative)."""
+    C = packed.shape[-1] // 4
+    bx, sx0, sx1 = _slot_weights((x + 1.0) * 0.5 * (W - 1), W)
+    by, sy0, sy1 = _slot_weights((y + 1.0) * 0.5 * (H - 1), H)
+    rows = packed[by * W + bx]                                       # [N, 4C]
+    return (rows[:, :C] * (sy0 * sx0)[:, None]
+            + rows[:, C:2 * C] * (sy0 * sx1)[:, None]
+            + rows[:, 2 * C:3 * C] * (sy1 * sx0)[:, None]
+            + rows[:, 3 * C:] * (sy1 * sx1)[:, None])
+
+
+def grid_sample_1d_packed(packed: torch.Tensor, D: int,
+                          y: torch.Tensor) -> torch.Tensor:
+    """Linear sample from a packed line [D, 2C]: one row per point."""
+    C = packed.shape[-1] // 2
+    b, s0, s1 = _slot_weights((y + 1.0) * 0.5 * (D - 1), D)
+    rows = packed[b]                                                 # [N, 2C]
+    return rows[:, :C] * s0[:, None] + rows[:, C:] * s1[:, None]
+
+
+def triplane_features_packed(packed_planes: Sequence[torch.Tensor],
+                             packed_lines: Sequence[torch.Tensor],
+                             sizes: Sequence[Tuple[int, int, int]],
+                             xyz: torch.Tensor) -> torch.Tensor:
+    """Packed-path equivalent of :func:`triplane_features`, and the plain
+    twin of kernel K4. Returns [N, sum(C_i)] f32."""
+    feats = []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        H, W, D = sizes[i]
+        plane_feat = grid_sample_2d_packed(packed_planes[i], H, W,
+                                           xyz[:, m0], xyz[:, m1])
+        line_feat = grid_sample_1d_packed(packed_lines[i], D,
+                                          xyz[:, VEC_MODE[i]])
+        feats.append(plane_feat * line_feat)
+    return torch.cat(feats, -1)
