@@ -1,9 +1,15 @@
 """Hand-written Hopper kernels: device dispatch, launch and launch counts.
 
-Each kernel has a wrapper in the op module that owns it
-(``ops/lane_shuffle.py`` for K1 ``permute_lanes`` and K3 ``cdf_take``,
-``ops/fused_sample.py`` for K4 ``triplane_features``), with its plain
-PyTorch twin beside it. The wrapper asks :func:`wants_kernel`:
+Each kernel has a wrapper in the op module that owns it, with its plain
+PyTorch twin beside it:
+
+* ``ops/lane_shuffle.py``: K1 ``permute_lanes`` and its backward launch,
+  K2 ``permute_lanes_3d`` forward and backward, K3 ``cdf_take``;
+* ``ops/fused_sample.py``: K4 ``triplane_features`` and K5
+  ``triplane_features_bwd``;
+* ``ops/line_matmul.py``: K6 ``line_grad``.
+
+The wrapper asks :func:`wants_kernel`:
 
 * tensors on the CPU take the plain version;
 * tensors on a CUDA device launch the kernel through :func:`launch`, which
@@ -25,7 +31,12 @@ import torch
 
 from . import build
 
-KERNELS = ("permute_lanes", "cdf_take", "triplane_features")
+# launch counters; a backward launch counts apart from its forward, also
+# where it runs the same kernel (K1 and K2 backward are the forward kernel
+# launched with the inverse permutation)
+KERNELS = ("permute_lanes", "permute_lanes_bwd", "permute_lanes_3d",
+           "permute_lanes_3d_bwd", "cdf_take", "triplane_features",
+           "triplane_features_bwd", "line_grad")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -50,18 +61,20 @@ def wants_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {device}")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args,
+           counter: str | None = None) -> None:
     """Run ``evdn_<name>`` of the kernel library on the current stream of
-    ``device`` and count the launch. ``args`` are the C arguments before
-    the trailing (device index, stream) pair: tensors' ``data_ptr()`` for
-    pointers, Python ints for sizes. Does not synchronise."""
+    ``device`` and count the launch under ``counter`` (default ``name``).
+    ``args`` are the C arguments before the trailing (device index,
+    stream) pair: tensors' ``data_ptr()`` for pointers, Python ints for
+    sizes. Does not synchronise."""
     lib = build.load()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, f"evdn_{name}")(*args, device.index, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({lib.evdn_error_string(rc).decode()})")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

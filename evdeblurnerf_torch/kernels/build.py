@@ -1,9 +1,10 @@
 """Build the hand-written CUDA kernels into one shared library and load it.
 
 ``nvcc`` compiles every ``evdeblurnerf_torch/csrc/*.cu`` for Hopper
-(``sm_90a``) into a library with a plain C interface, loaded with
-``ctypes``. Nothing includes PyTorch's headers, so a cold build takes
-seconds, not minutes. The build runs at first use, from the sources in the
+(``sm_90a``), one process per source, all started together, and links the
+objects into a library with a plain C interface, loaded with ``ctypes``.
+Nothing includes PyTorch's headers, so a cold build takes seconds, not
+minutes. The build runs at first use, from the sources in the
 checkout, into ``build/evdeblurnerf_torch/`` beside the package; the file
 name carries a digest of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused.
@@ -28,7 +29,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "evdeblurnerf_torch"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,11 +40,19 @@ _L = ctypes.c_int64
 SIGNATURES = {
     # x, idx, out, rows, S, S2, device, stream
     "evdn_permute_lanes": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # x, idx, out, rows, C, S, S2, device, stream
+    "evdn_permute_lanes_3d": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # cdf, bins, below, above, 4 outputs, rows, M, Mb, N, device, stream
     "evdn_cdf_take": (_P,) * 8 + (_L, _I, _I, _I, _I, _P),
     # xyz, 3 packed planes, 3 packed lines, out, n,
     # (H, W, D, C) x 3 projections, device, stream
     "evdn_triplane_features": (_P,) * 8 + (_L,) + (_I,) * 12 + (_I, _P),
+    # xyz, 3 packed planes, 3 packed lines, g, 3 plane grads, 3 line-row
+    # grads, xyz grad, n, (H, W, D, C) x 3 projections, device, stream
+    "evdn_triplane_features_bwd": (_P,) * 15 + (_L,) + (_I,) * 12
+    + (_I, _P),
+    # idx, g, out, n, D, W, device, stream
+    "evdn_line_grad": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -82,6 +91,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libevdn_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands side by side; returns [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    done = [(cmd, p.communicate()[0]) for cmd, p in procs]
+    return [(cmd, p.returncode, text)
+            for (cmd, p), (_, text) in zip(procs, done)]
+
+
 def build() -> Path:
     """Compile the library unless a build of these exact sources exists;
     returns its path. nvcc's output (``-Xptxas -v``: registers, shared
@@ -92,14 +111,21 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: "
-            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    objs = [tmp.with_name(f"{tmp.stem}.{s.stem}.o") for s in cu]
+    compiled = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                         for s, o in zip(cu, objs)])
+    if all(rc == 0 for _, rc, _ in compiled):
+        compiled += _run_all([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                               str(tmp), *map(str, objs)]])
+    out.with_suffix(".log").write_text(
+        "".join(f"$ {' '.join(cmd)}\n{text}" for cmd, _, text in compiled))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, rc, text in compiled:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed with exit code {rc}: "
+                               f"{' '.join(cmd)}\n{text}")
     # atomic publish: a concurrent build of the same sources either
     # finds the finished file or replaces it with an identical one
     os.replace(tmp, out)

@@ -1,1 +1,2 @@
-"""Field models of the port: layers, encodings, voxel fields, renderer."""
+"""Models of the port: layers, encodings, voxel fields, renderer, the RBK
+blur kernel, AWP/MAM, the CRFs and the top-level system."""

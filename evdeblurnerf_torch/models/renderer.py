@@ -1,9 +1,12 @@
-"""Renderer: coarse + fine fields and the per-ray eval rendering pipeline.
+"""Renderer: coarse + fine fields and the per-ray rendering pipeline.
 
 Counterpart of ``evdeblurnerf_tpu/models/renderer.py`` (ref:
-networks/renderer.py:14-626) for the c2f model at eval: deterministic
-stratified depths, the coarse field, det ``sample_pdf`` importance depths,
-and the fine field over the merged set, with both culls off.
+networks/renderer.py:14-626) for the c2f model, with both culls off:
+stratified depths, the coarse field, ``sample_pdf`` importance depths, and
+the fine field over the merged set. At eval everything is deterministic;
+the training render adds the stratified jitter (``perturb``), the sigma
+noise (``raw_noise_std``) and stochastic importance draws, all from one
+``torch.Generator`` the caller passes in.
 
 The fine pass evaluates its fields in UNSORTED (stratified ++ importance)
 order, as the JAX package does: the coarse-grid features of the stratified
@@ -36,9 +39,11 @@ class RenderConfig:
     mode: str = "c2f"
     N_samples: int = 64
     N_importance: int = 64
+    perturb: float = 1.0
     use_viewdirs: bool = True
     multires: int = 10
     multires_views: int = 4
+    raw_noise_std: float = 0.0
     lindisp: bool = False
     ndc: bool = True
     near: float = 0.0
@@ -69,6 +74,7 @@ class RenderConfig:
     fine_app_actfn: str = "none"
     kernel_type: str = "none"
     kernel_feat_cnl: int = 15
+    use_awp: bool = False
 
     @property
     def composite_feature_coarse(self) -> bool:
@@ -100,9 +106,10 @@ def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
             "importance pass; a coarse-only render is not ported yet")
     return RenderConfig(
         mode=args.mode, N_samples=args.N_samples,
-        N_importance=args.N_importance, use_viewdirs=args.use_viewdirs,
+        N_importance=args.N_importance, perturb=args.perturb,
+        use_viewdirs=args.use_viewdirs,
         multires=args.multires, multires_views=args.multires_views,
-        lindisp=args.lindisp,
+        raw_noise_std=args.raw_noise_std, lindisp=args.lindisp,
         ndc=not args.no_ndc, near=float(near), far=float(far),
         H=int(H), W=int(W), focal=float(focal),
         render_rmnearplane=args.render_rmnearplane,
@@ -127,7 +134,7 @@ def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
         fine_n_voxels=args.fine_n_voxels,
         fine_app_actfn=args.fine_app_actfn,
         kernel_type=args.kernel_type,
-        kernel_feat_cnl=args.kernel_feat_cnl)
+        kernel_feat_cnl=args.kernel_feat_cnl, use_awp=args.kernel_use_awp)
 
 
 class Renderer(nn.Module):
@@ -168,16 +175,32 @@ class Renderer(nn.Module):
             composite_feature=False, rgb_activate="none",
             app_actfn=cfg.fine_app_actfn, **common)
 
-    def _sample_z(self, R: int, device) -> torch.Tensor:
-        """Deterministic stratified depths [R, N_samples]
-        (ref: renderer.py:163-178 with perturb=0)."""
+    def _sample_z(self, R: int, device, perturb: float,
+                  generator) -> torch.Tensor:
+        """Stratified depths [R, N_samples], jittered within their bins
+        when ``perturb`` > 0 (ref: renderer.py:163-178)."""
         cfg = self.cfg
         t_vals = unit_linspace(cfg.N_samples, device)
         near = torch.full((R, 1), cfg.near, device=device)
         far = torch.full((R, 1), cfg.far, device=device)
         if not cfg.lindisp:
-            return near * (1.0 - t_vals) + far * t_vals
-        return 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+            z_vals = near * (1.0 - t_vals) + far * t_vals
+        else:
+            z_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+        if perturb > 0.0:
+            mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            upper = torch.cat([mids, z_vals[..., -1:]], -1)
+            lower = torch.cat([z_vals[..., :1], mids], -1)
+            t_rand = torch.rand(z_vals.shape, generator=generator,
+                                device=device)
+            z_vals = lower + (upper - lower) * t_rand
+        return z_vals
+
+    def _noise(self, shape, noise_std: float, generator):
+        if noise_std > 0.0:
+            return torch.randn(shape, generator=generator,
+                               device=self.mlp_coarse.aabb.device) * noise_std
+        return None
 
     def _unpack_rays(self, rays: torch.Tensor):
         """[R, 3, 2] packed rays -> (rays_o, rays_d, viewdirs), with viewdir
@@ -193,36 +216,67 @@ class Renderer(nn.Module):
                                           rays_o, rays_d)
         return rays_o, rays_d, viewdirs
 
-    def render_rays(self, rays_o, rays_d, viewdirs):
-        """Deterministic c2f render of rays [R, 3] (already NDC if
-        applicable). Returns a dict with rgb_map/depth_map/acc_map, the
-        coarse rgb0/depth0/acc0, the fine weights and sorted z_vals."""
+    def render_rays(self, rays_o, rays_d, viewdirs, is_train=False,
+                    generator=None, want_features=False):
+        """c2f render of rays [R, 3] (already NDC if applicable).
+
+        ``is_train`` applies the config's ``perturb`` and ``raw_noise_std``
+        with draws from ``generator`` (det importance draws when perturb is
+        0) and drops the eval-only near-plane mask. ``want_features`` also
+        returns the fine field's per-sample features in depth order
+        (``depth_feature``, for AWP). Returns a dict with
+        rgb_map/depth_map/acc_map, the coarse rgb0/depth0/acc0, the fine
+        weights and sorted z_vals.
+        """
         cfg = self.cfg
         R = rays_o.shape[0]
-        z_vals = self._sample_z(R, rays_o.device)
+        perturb = cfg.perturb if is_train else 0.0
+        noise_std = cfg.raw_noise_std if is_train else 0.0
+        z_vals = self._sample_z(R, rays_o.device, perturb, generator)
         pts = (rays_o[..., None, :]
                + rays_d[..., None, :] * z_vals[..., :, None])
+        noise_c = self._noise((R, cfg.N_samples - 1), noise_std, generator)
         ft_coarse = self.mlp_coarse.sample(pts)
-        rgb0, depth0, acc0, weights = self.mlp_coarse(
-            pts, viewdirs, ft_coarse, z_vals, rays_d)
+        rgb0, depth0, acc0, weights, _ = self.mlp_coarse(
+            pts, viewdirs, ft_coarse, z_vals, rays_d, noise=noise_c,
+            is_train=is_train)
 
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_samples = sample_pdf(z_mid, weights[..., 1:-1], cfg.N_importance,
-                               det=True)
+                               det=perturb == 0.0, generator=generator)
         z_cat = torch.cat([z_vals, z_samples], -1)
         z_all, perm, inv_perm = lane_shuffle.sort_with_perm(z_cat)
         pts_new = (rays_o[..., None, :]
                    + rays_d[..., None, :] * z_samples[..., :, None])
-        pts_cat = torch.cat([pts, pts_new], 1)
+        pts_cat = (rays_o[..., None, :]
+                   + rays_d[..., None, :] * z_cat[..., :, None])
         ft = torch.cat([torch.cat([ft_coarse, self.mlp_coarse.sample(pts_new)],
                                   1),
                         self.mlp_fine.sample(pts_cat)], -1)
-        rgb, depth, acc, weights = self.mlp_fine(
-            pts_cat, viewdirs, ft, z_all, rays_d, perm=perm, inv_perm=inv_perm)
-        return dict(rgb_map=rgb, depth_map=depth, acc_map=acc, rgb0=rgb0,
-                    depth0=depth0, acc0=acc0, weights=weights, z_vals=z_all)
+        noise_f = self._noise((R, z_cat.shape[-1] - 1), noise_std, generator)
+        rgb, depth, acc, weights, feature = self.mlp_fine(
+            pts_cat, viewdirs, ft, z_all, rays_d, noise=noise_f,
+            is_train=is_train, perm=perm, inv_perm=inv_perm,
+            want_features=want_features)
+        ret = dict(rgb_map=rgb, depth_map=depth, acc_map=acc, rgb0=rgb0,
+                   depth0=depth0, acc0=acc0, weights=weights, z_vals=z_all)
+        if feature is not None:
+            ret["depth_feature"] = feature
+        return ret
 
-    def render(self, rays: torch.Tensor):
+    def render(self, rays: torch.Tensor, is_train=False, generator=None,
+               want_features=False):
         """Render rays given as [R, 3, 2] (origin, direction on the last
-        axis), applying viewdir normalisation and NDC."""
-        return self.render_rays(*self._unpack_rays(rays))
+        axis), applying viewdir normalisation and NDC; the NDC directions
+        come back as ``rays_d``."""
+        rays_o, rays_d, viewdirs = self._unpack_rays(rays)
+        ret = self.render_rays(rays_o, rays_d, viewdirs, is_train=is_train,
+                               generator=generator,
+                               want_features=want_features)
+        ret["rays_d"] = rays_d
+        return ret
+
+    def tv_loss(self) -> torch.Tensor:
+        """Grid TV regulariser x5 (ref: renderer.py:361-365)."""
+        return (self.mlp_coarse.tv_loss_app()
+                + self.mlp_fine.tv_loss_app()) * 5.0

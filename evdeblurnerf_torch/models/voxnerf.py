@@ -1,4 +1,4 @@
-"""PDRF coarse-to-fine voxel fields (mode=c2f), eval forward.
+"""PDRF coarse-to-fine voxel fields (mode=c2f): eval and training forward.
 
 Counterpart of ``evdeblurnerf_tpu/models/voxnerf.py`` (ref:
 networks/pdrf/voxnerf.py): TensoRF-style factored tri-plane/line
@@ -11,10 +11,13 @@ appearance grids plus small sigma/color MLPs, with the two heads
 Parameters carry the reference's names and layouts (``app_plane.{i}``
 [1, C, H, W], ``app_line.{i}`` [1, C, D, 1], ``basis_mat``,
 ``sigma_net.{l}``, ``color_net.{l}``), so a reference
-``network_state_dict`` loads strictly. The grids are neighbour-packed once,
-when the module is built and again whenever a state dict is loaded into it,
-into non-persistent buffers that :meth:`VoxelNeRF.sample` reads through
-kernel K4.
+``network_state_dict`` loads strictly. The grids are neighbour-packed into
+non-persistent buffers that :meth:`VoxelNeRF.sample` reads through kernel
+K4; the packing records each grid's version counter, and :meth:`sample`
+repacks whenever a grid has changed since (an optimizer step, a loaded
+state dict, any in-place edit), so it never reads tables older than the
+grids. The gradient of :meth:`sample` reaches the raw grids through kernel
+K5 (``ops/fused_sample.py::sample_grids``).
 """
 
 from __future__ import annotations
@@ -106,22 +109,35 @@ class VoxelNeRF(nn.Module):
 
         self.pack_tables()
         self.register_load_state_dict_post_hook(
-            lambda module, incompatible: module.pack_tables())
+            lambda module, incompatible: module.refresh_tables())
+
+    def grids(self):
+        """The raw grids as ([C, H, W] x 3 planes, [C, D] x 3 lines), views
+        of the ``app_plane`` / ``app_line`` parameters."""
+        return ([p[0] for p in self.app_plane],
+                [l[0, :, :, 0] for l in self.app_line])
+
+    def _grid_versions(self):
+        return tuple(p._version for p in (*self.app_plane, *self.app_line))
 
     @torch.no_grad()
     def pack_tables(self) -> None:
-        """Neighbour-pack the grids into the tables :meth:`sample` reads.
-        Runs at construction and after every ``load_state_dict``; call it
-        again after changing the grids in place."""
-        planes, lines, sizes = triplane.pack_grids(
-            [p[0] for p in self.app_plane], [l[0, :, :, 0] for l in
-                                             self.app_line])
+        """Neighbour-pack the grids into the tables :meth:`sample` reads and
+        record the grids' versions. At the paper width this is one pass
+        over ~0.5 GB (the fine 64-component plane packs to ~375 MB)."""
+        planes, lines, sizes = triplane.pack_grids(*self.grids())
         for i in range(3):
             self.register_buffer(f"packed_plane_{i}", planes[i],
                                  persistent=False)
             self.register_buffer(f"packed_line_{i}", lines[i],
                                  persistent=False)
         self.table_sizes = sizes
+        self._packed_versions = self._grid_versions()
+
+    def refresh_tables(self) -> None:
+        """Repack if any grid changed since the last packing."""
+        if self._grid_versions() != self._packed_versions:
+            self.pack_tables()
 
     def normalize_coords(self, pts: torch.Tensor) -> torch.Tensor:
         """World points -> [-1, 1] grid coords (ref: voxnerf.py:203-206)."""
@@ -130,13 +146,15 @@ class VoxelNeRF(nn.Module):
 
     def sample(self, pts: torch.Tensor) -> torch.Tensor:
         """World pts [..., 3] -> appearance features [..., app_dim]
-        (ref: voxnerf.py:132-151, 203-208), through kernel K4."""
+        (ref: voxnerf.py:132-151, 203-208): kernel K4 over the packed
+        tables, differentiable to the grids and the points (K5)."""
+        self.refresh_tables()
         shape = pts.shape[:-1]
         xyz = self.normalize_coords(pts.reshape(-1, 3)).contiguous()
-        feats = fused_sample.triplane_features(
-            [getattr(self, f"packed_plane_{i}") for i in range(3)],
-            [getattr(self, f"packed_line_{i}") for i in range(3)],
-            self.table_sizes, xyz)
+        packed = ([getattr(self, f"packed_plane_{i}") for i in range(3)],
+                  [getattr(self, f"packed_line_{i}") for i in range(3)],
+                  self.table_sizes)
+        feats = fused_sample.sample_grids(*self.grids(), packed, xyz)
         feats = self.basis_mat(feats)
         return ACTIVATIONS[self.app_actfn](feats).reshape(*shape,
                                                           self.app_dim)
@@ -148,17 +166,29 @@ class VoxelNeRF(nn.Module):
                 h = torch.relu(h)
         return h
 
-    def forward(self, pts, viewdirs, fts, z_vals, rays_d, perm=None,
-                inv_perm=None):
-        """Field evaluation and compositing at eval (no sigma noise).
+    def tv_loss_app(self) -> torch.Tensor:
+        """(ref: voxnerf.py:126-130)"""
+        return triplane.tv_loss_app(*self.grids())
+
+    def forward(self, pts, viewdirs, fts, z_vals, rays_d, noise=None,
+                is_train=False, perm=None, inv_perm=None,
+                want_features=False):
+        """Field evaluation and compositing (ref: voxnerf.py:210-259).
 
         pts [R, S, 3]; viewdirs [R, 3]; fts [R, S, C] sampled features;
-        z_vals [R, S] sorted; rays_d [R, 3]. With ``perm`` [R, S] int32 the
-        per-sample inputs are in an unsorted order with ``z_vals[r, i] ==
-        z_cat[r, perm[r, i]]``: the field runs in that order and only the
-        compositing scalars move, through kernel K1 (sigma to depth order,
-        weights back). Returns (color [R, 3], depth [R], acc [R],
-        weights [R, S]) with weights in depth order.
+        z_vals [R, S] sorted; rays_d [R, 3]; ``noise`` optional [R, S-1]
+        sigma noise. The near-plane mask applies at eval only. With
+        ``perm`` [R, S] int32 the per-sample inputs are in an unsorted
+        order with ``z_vals[r, i] == z_cat[r, perm[r, i]]``: the field runs
+        in that order and only the compositing scalars move, through kernel
+        K1 (sigma to depth order, weights back).
+
+        Returns (color [R, 3], depth [R], acc [R], weights [R, S],
+        feature): weights in depth order; ``feature`` is the ray-composited
+        feature [R, geo_feat_dim] of the CRR head, or, for the FVR head
+        when ``want_features``, the per-sample features [R, S,
+        geo_feat_dim] in depth order (moved by kernel K2, for AWP), else
+        None.
         """
         R, S = pts.shape[0], pts.shape[1]
         pe = positional_encoding(pts.reshape(R * S, 3), self.multires)
@@ -169,18 +199,19 @@ class VoxelNeRF(nn.Module):
         sigma_act = ACTIVATIONS[self.sigma_activate]
 
         rm_mask = None
-        if self.render_rmnearplane > 0:
+        if not is_train and self.render_rmnearplane > 0:
             rm_mask = compositing.rmnearplane_mask(z_vals,
                                                    self.render_rmnearplane)
         if perm is not None:
-            sigma = lane_shuffle.permute_lanes(sigma.contiguous(), perm)
+            sigma = lane_shuffle.permute_lanes(sigma, perm, inv_perm)
         weights = compositing.compute_weights(
-            sigma, z_vals, rays_d, sigma_act, rmnearplane_mask=rm_mask)
+            sigma, z_vals, rays_d, sigma_act, noise=noise,
+            rmnearplane_mask=rm_mask)
         weights_cat = weights
         if perm is not None:
-            weights_cat = lane_shuffle.permute_lanes(weights.contiguous(),
-                                                     inv_perm)
+            weights_cat = lane_shuffle.permute_lanes(weights, inv_perm, perm)
 
+        out_feature = None
         if self.composite_feature:
             feat_act = ACTIVATIONS[self.rgb_activate](
                 feature.reshape(R, S, -1))
@@ -188,6 +219,7 @@ class VoxelNeRF(nn.Module):
             dirs_pe = positional_encoding(viewdirs, self.multires_views)
             color = torch.sigmoid(self._mlp(
                 self.color_net, torch.cat([feat_ray, dirs_pe], -1)))
+            out_feature = feat_ray
         else:
             dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(R * S, 3)
             dirs_pe = positional_encoding(dirs, self.multires_views)
@@ -195,6 +227,13 @@ class VoxelNeRF(nn.Module):
                 self.color_net, torch.cat([feature, dirs_pe], -1)))
             color_s = ACTIVATIONS[self.rgb_activate](color_s.reshape(R, S, 3))
             color = torch.sum(weights_cat[..., None] * color_s, -2)
+            if want_features:
+                out_feature = feature.reshape(R, S, -1)
+                if perm is not None:
+                    # [R, C, S] lane shuffle into depth order (kernel K2)
+                    out_feature = lane_shuffle.permute_lanes(
+                        out_feature.transpose(1, 2), perm,
+                        inv_perm).transpose(1, 2)
         depth = torch.sum(weights * z_vals, -1)
         acc = torch.sum(weights, -1)
-        return color, depth, acc, weights
+        return color, depth, acc, weights, out_feature

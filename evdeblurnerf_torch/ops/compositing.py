@@ -3,8 +3,8 @@
 Counterpart of ``evdeblurnerf_tpu/ops/compositing.py`` (ref:
 networks/pdrf/voxnerf.py:153-201): density is predicted for the first S-1
 samples, the last interval's alpha is pinned to 1, and the transmittance
-carries the reference's 1e-10 epsilon. Forward only: the one-pass cumprod
-backward of the JAX package comes with training.
+carries the reference's 1e-10 epsilon. The transmittance cumprod has the
+JAX package's one-pass backward (:class:`CumprodLanes`).
 """
 
 from __future__ import annotations
@@ -14,30 +14,55 @@ from typing import Callable, Optional
 import torch
 
 
+class CumprodLanes(torch.autograd.Function):
+    """``cumprod`` along the last axis with a one-pass backward,
+    ``d_x[i] = (sum_{j >= i} g[j] * y[j]) / x[i]`` (counterpart of
+    ``evdeblurnerf_tpu/ops/compositing.py::_cumprod_lanes``). The factors
+    it is used on are strictly positive (``1 - alpha + 1e-10``), so the
+    division is safe."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        suffix = torch.flip(torch.cumsum(torch.flip(g * y, (-1,)), -1), (-1,))
+        return suffix / x
+
+
 def compute_weights(sigma: torch.Tensor, z_vals: torch.Tensor,
                     rays_d: torch.Tensor,
                     sigma_activate: Callable[[torch.Tensor], torch.Tensor],
+                    noise: Optional[torch.Tensor] = None,
                     rmnearplane_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Per-sample compositing weights [R, S].
 
     sigma: [R, S] raw density logits; z_vals: [R, S]; rays_d: [R, 3]
-    (interval lengths are scaled by ``|rays_d|``). ``rmnearplane_mask``:
-    optional [R, S-1] multiplier on the density. The sigma noise of
-    training comes with the training render.
+    (interval lengths are scaled by ``|rays_d|``). ``noise``: optional
+    [R, S-1] regularisation noise added before the activation (ref:
+    voxnerf.py:174-179). ``rmnearplane_mask``: optional [R, S-1]
+    multiplier on the density.
     """
     dists = z_vals[..., 1:] - z_vals[..., :-1]                     # [R, S-1]
     dists = dists * torch.linalg.vector_norm(rays_d[..., None, :], dim=-1)
 
-    density = sigma_activate(sigma[..., :-1])
+    raw_sigma = sigma[..., :-1]
+    if noise is not None:
+        raw_sigma = raw_sigma + noise
+    density = sigma_activate(raw_sigma)
     if rmnearplane_mask is not None:
         density = density * rmnearplane_mask
 
     alpha = 1.0 - torch.exp(-density * dists)                      # [R, S-1]
     alpha = torch.cat([alpha, torch.ones_like(alpha[..., :1])], -1)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1),
-        -1)[..., :-1]
+    trans = CumprodLanes.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10],
+                  -1))[..., :-1]
     return alpha * trans
 
 

@@ -4,14 +4,16 @@ Counterpart of ``evdeblurnerf_tpu/ops/lane_shuffle.py``. The c2f renderer
 keeps per-sample tensors in UNSORTED (stratified ++ importance) order and
 moves only the compositing scalars between orders:
 
-* :func:`permute_lanes` (kernel K1) — ``out[r, j] = x[r, idx[r, j]]``;
-* :func:`cdf_take` (kernel K3) — the four gathers of ``sample_pdf``;
+* :func:`permute_lanes` — ``out[r, j] = x[r, perm[r, j]]`` for x [R, S]
+  (kernel K1) or [R, C, S] (kernel K2), differentiable: its gradient is
+  the same gather by the inverse permutation (the same kernel, counted as
+  its backward launch);
+* :func:`cdf_take` (kernel K3) — the four gathers of ``sample_pdf``,
+  forward-only;
 * :func:`sort_with_perm` — a stable sort plus the inverse permutation.
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/lane_shuffle.cu``; on CPU tensors they run the plain twins below.
-Both kernels are forward-only in this package: the backward of K1 (the
-same gather by the inverse permutation) comes with training.
 """
 
 from __future__ import annotations
@@ -22,34 +24,72 @@ from .. import kernels
 
 
 def permute_lanes_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: ``torch.gather`` along the last axis."""
-    return torch.gather(x, -1, idx.long())
+    """Plain version of K1 and K2: ``torch.gather`` along the last axis,
+    the index shared by every channel of a 3-D ``x``."""
+    idx = idx.long()
+    if x.dim() == 3:
+        idx = idx[:, None, :].expand(x.shape[0], x.shape[1], idx.shape[1])
+    return torch.gather(x, -1, idx)
 
 
-def permute_lanes(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """``out[r, i] = x[r, perm[r, i]]`` for x [R, S] f32, perm [R, S2]
-    int32 with entries in [0, S).
-
-    Kernel K1 on CUDA tensors (forward only: raises if ``x`` requires
-    grad; the JAX function's VJP, the same gather by the inverse
-    permutation, comes with training), :func:`permute_lanes_plain` on CPU
-    tensors.
-    """
-    if not kernels.wants_kernel(x, perm):
-        return permute_lanes_plain(x, perm)
-    if x.requires_grad:
-        raise NotImplementedError(
-            "permute_lanes: the K1 backward launch comes with training "
-            "(ROADMAP queue 2, K1)")
-    kernels.check_tensor("permute_lanes x", x, torch.float32, 2)
-    kernels.check_tensor("permute_lanes perm", perm, torch.int32, 2)
-    if perm.shape[0] != x.shape[0]:
+def _take(x: torch.Tensor, idx: torch.Tensor, backward: bool) -> torch.Tensor:
+    """One gather ``x[..., idx]``: K1 (2-D) or K2 (3-D) on CUDA tensors,
+    counted as a backward launch when ``backward``; the plain version on
+    CPU tensors."""
+    if not kernels.wants_kernel(x, idx):
+        return permute_lanes_plain(x, idx)
+    ndim = x.dim()
+    if ndim not in (2, 3):
+        raise ValueError(f"permute_lanes: x must be [R, S] or [R, C, S], got "
+                         f"{tuple(x.shape)}")
+    x = x.contiguous()
+    kernels.check_tensor("permute_lanes x", x, torch.float32, ndim)
+    kernels.check_tensor("permute_lanes perm", idx, torch.int32, 2)
+    if idx.shape[0] != x.shape[0]:
         raise ValueError(f"permute_lanes: {x.shape[0]} rows of x, "
-                         f"{perm.shape[0]} rows of indices")
-    out = torch.empty(perm.shape, dtype=x.dtype, device=x.device)
-    kernels.launch("permute_lanes", x.device, x.data_ptr(), perm.data_ptr(),
-                   out.data_ptr(), x.shape[0], x.shape[1], perm.shape[1])
+                         f"{idx.shape[0]} rows of indices")
+    out = torch.empty((*x.shape[:-1], idx.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    if ndim == 2:
+        name = "permute_lanes"
+        sizes = (x.shape[0], x.shape[1], idx.shape[1])
+    else:
+        name = "permute_lanes_3d"
+        sizes = (x.shape[0], x.shape[1], x.shape[2], idx.shape[1])
+    kernels.launch(name, x.device, x.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), *sizes,
+                   counter=f"{name}_bwd" if backward else name)
     return out
+
+
+class _PermuteLanes(torch.autograd.Function):
+    """The gather by ``perm``; its VJP is the gather by ``inv_perm``
+    (``evdeblurnerf_tpu/ops/lane_shuffle.py:219-240``)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return _take(x, perm, backward=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        return _take(g.contiguous(), inv_perm, backward=True), None, None
+
+
+def permute_lanes(x: torch.Tensor, perm: torch.Tensor,
+                  inv_perm: torch.Tensor) -> torch.Tensor:
+    """``out[r, ..., i] = x[r, ..., perm[r, i]]`` for x [R, S] or [R, C, S]
+    f32, with perm and inv_perm [R, S] int32 a permutation and its inverse
+    (``perm[r, inv_perm[r, i]] == i``); the gradient is the gather by
+    ``inv_perm``.
+
+    Kernel K1 (2-D) or K2 (3-D) on CUDA tensors, forward and backward;
+    :func:`permute_lanes_plain` on CPU tensors.
+    """
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return _take(x, perm, backward=False)
+    return _PermuteLanes.apply(x, perm, inv_perm)
 
 
 def sort_with_perm(keys: torch.Tensor):
@@ -80,10 +120,15 @@ def cdf_take(cdf: torch.Tensor, bins: torch.Tensor, below: torch.Tensor,
     cdf [R, M] and bins [R, Mb] f32; below/above [R, N] int32. Returns
     (cdf[below], cdf[above], bins[below], bins[above]), each [R, N].
     Forward-only, like the JAX kernel, whose caller stop-gradients the
-    result. Kernel K3 on CUDA tensors, :func:`cdf_take_plain` on CPU ones.
+    result. Kernel K3 on CUDA tensors (raises if asked for a gradient),
+    :func:`cdf_take_plain` on CPU ones.
     """
     if not kernels.wants_kernel(cdf, bins, below, above):
         return cdf_take_plain(cdf, bins, below, above)
+    if torch.is_grad_enabled() and (cdf.requires_grad or bins.requires_grad):
+        raise NotImplementedError(
+            "cdf_take: K3 is forward-only; pass detached cdf and bins, as "
+            "sample_pdf does")
     for name, t in (("cdf", cdf), ("bins", bins)):
         kernels.check_tensor(f"cdf_take {name}", t, torch.float32, 2)
     for name, t in (("below", below), ("above", above)):

@@ -49,7 +49,9 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_samples: int,
 
     bins: [R, M] bin positions; weights: [R, M-1] unnormalized bin masses.
     ``det`` draws at :func:`unit_linspace` instead of uniform noise from
-    ``generator``. Returns samples [R, N_samples].
+    ``generator``. Returns samples [R, N_samples], detached from the graph
+    as the JAX package's ``stop_gradient`` and the reference's ``detach()``
+    make them (ref: utils/rays.py:188).
     """
     weights = weights + 1e-5
     pdf = weights / torch.sum(weights, -1, keepdim=True)
@@ -72,4 +74,4 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_samples: int,
     denom = cdf_above - cdf_below
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
-    return bins_below + t * (bins_above - bins_below)
+    return (bins_below + t * (bins_above - bins_below)).detach()

@@ -14,6 +14,7 @@ networks/pdrf/voxnerf.py:132-151): bilinear interpolation with
 
 The packed form is the plain twin of kernel K4
 (``ops/fused_sample.py::triplane_features``), which the renderer calls.
+The TV regularisers of the grids close the module.
 Conventions follow ``torch.nn.functional.grid_sample``: a coordinate pair
 (x, y) in [-1, 1] indexes (width, height) = (last, second-to-last) grid
 dims.
@@ -173,3 +174,32 @@ def triplane_features_packed(packed_planes: Sequence[torch.Tensor],
                                           xyz[:, VEC_MODE[i]])
         feats.append(plane_feat * line_feat)
     return torch.cat(feats, -1)
+
+
+def tv_loss_2d(x: torch.Tensor) -> torch.Tensor:
+    """Total-variation regulariser of a [C, H, W] grid (ref:
+    voxnerf.py:306-324 with batch size 1)."""
+    C, H, W = x.shape
+    count_h = max(C * (H - 1) * W, 1)
+    count_w = max(C * H * (W - 1), 1)
+    h_tv = torch.sum(torch.square(x[:, 1:, :] - x[:, :-1, :]))
+    w_tv = torch.sum(torch.square(x[:, :, 1:] - x[:, :, :-1]))
+    return 2.0 * (h_tv / count_h + w_tv / count_w)
+
+
+def tv_loss_1d(x: torch.Tensor) -> torch.Tensor:
+    """TV of a [C, D] line grid: the reference's loss of the [1, C, D, 1]
+    line tensor, whose width term is zero."""
+    C, D = x.shape
+    h_tv = torch.sum(torch.square(x[:, 1:] - x[:, :-1]))
+    return 2.0 * (h_tv / max(C * (D - 1), 1))
+
+
+def tv_loss_app(planes: Sequence[torch.Tensor],
+                lines: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Grid TV: planes [C, H, W] weighted 1e-2, lines [C, D] 1e-3 (ref:
+    voxnerf.py:126-130)."""
+    total = 0.0
+    for plane, line in zip(planes, lines):
+        total = total + tv_loss_2d(plane) * 1e-2 + tv_loss_1d(line) * 1e-3
+    return total

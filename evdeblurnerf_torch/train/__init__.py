@@ -1,1 +1,1 @@
-"""Eval rendering (the train step comes with a later slice)."""
+"""Eval rendering, the train step, its optimizer and train state."""

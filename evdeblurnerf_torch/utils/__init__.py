@@ -1,1 +1,2 @@
-"""Ray generation and the weight bridge from the JAX package."""
+"""Ray generation, SE(3) maps, the EGM loss and the weight bridge from the
+JAX package."""

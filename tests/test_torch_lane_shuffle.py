@@ -1,10 +1,12 @@
-"""Port's lane shuffles (K1, K3 plain twins, sort_with_perm) vs the JAX
-package on the same numpy inputs.
+"""Port's lane shuffles (K1, K2 and K3 plain twins and the gradients of
+permute_lanes, sort_with_perm) vs the JAX package on the same numpy
+inputs.
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU, as its
 own tests do. Gathers and sorts are exact, so every comparison is bitwise.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,10 +22,13 @@ from evdeblurnerf_tpu.ops import lane_shuffle as jls
 def test_permute_lanes_matches_pallas_k1(rows, S, S2):
     rng = np.random.default_rng(rows + S)
     x = rng.normal(size=(rows, S)).astype(np.float32)
-    idx = np.argsort(rng.uniform(size=(rows, S)), -1)[:, :S2].astype(np.int32)
+    full = np.argsort(rng.uniform(size=(rows, S)), -1).astype(np.int32)
+    inv = np.argsort(full, -1).astype(np.int32)
+    idx = np.ascontiguousarray(full[:, :S2])
     want = np.asarray(jls._lane_take_2d(jnp.asarray(x), jnp.asarray(idx),
                                         interpret=True))
-    got = tls.permute_lanes(torch.from_numpy(x), torch.from_numpy(idx))
+    got = tls.permute_lanes(torch.from_numpy(x), torch.from_numpy(idx),
+                            torch.from_numpy(inv))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -31,8 +36,9 @@ def test_cpu_wrappers_launch_nothing():
     kernels.reset_launches()
     x = torch.randn(4, 8)
     _, perm, inv = tls.sort_with_perm(torch.rand(4, 8))
-    tls.permute_lanes(x, perm)
-    tls.cdf_take(x, x, perm, inv)
+    tls.permute_lanes(x.requires_grad_(), perm, inv).sum().backward()
+    tls.permute_lanes(torch.randn(4, 3, 8), perm, inv)
+    tls.cdf_take(x.detach(), x.detach(), perm, inv)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
@@ -71,3 +77,42 @@ def test_sort_with_perm_matches_jax(ties):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert got[1].dtype == got[2].dtype == np.int32
+
+
+@pytest.mark.parametrize("rows,C,S", [(20, 5, 128), (9, 3, 16)])
+def test_permute_lanes_3d_and_gradient_match_pallas_k2(rows, C, S):
+    """K2's plain twin against the Pallas kernel in interpret mode, and its
+    gradient (the gather by the inverse permutation) against jax.vjp of
+    the JAX permute_lanes: both exact."""
+    rng = np.random.default_rng(rows * C)
+    x = rng.normal(size=(rows, C, S)).astype(np.float32)
+    g = rng.normal(size=(rows, C, S)).astype(np.float32)
+    perm = np.argsort(rng.uniform(size=(rows, S)), -1).astype(np.int32)
+    inv = np.argsort(perm, -1).astype(np.int32)
+    want = np.asarray(jls._lane_take_3d(jnp.asarray(x), jnp.asarray(perm),
+                                        interpret=True))
+    _, vjp = jax.vjp(lambda v: jls.permute_lanes(v, jnp.asarray(perm),
+                                                 jnp.asarray(inv)),
+                     jnp.asarray(x))
+    want_g = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).requires_grad_()
+    got = tls.permute_lanes(xt, torch.from_numpy(perm), torch.from_numpy(inv))
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(xt.grad.numpy(), want_g)
+
+
+def test_permute_lanes_2d_gradient_matches_jax():
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(33, 128)).astype(np.float32)
+    g = rng.normal(size=(33, 128)).astype(np.float32)
+    perm = np.argsort(rng.uniform(size=(33, 128)), -1).astype(np.int32)
+    inv = np.argsort(perm, -1).astype(np.int32)
+    _, vjp = jax.vjp(lambda v: jls.permute_lanes(v, jnp.asarray(perm),
+                                                 jnp.asarray(inv)),
+                     jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    tls.permute_lanes(xt, torch.from_numpy(perm),
+                      torch.from_numpy(inv)).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(xt.grad.numpy(),
+                                  np.asarray(vjp(jnp.asarray(g))[0]))

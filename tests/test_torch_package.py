@@ -13,7 +13,8 @@ import torch
 import evdeblurnerf_torch
 from evdeblurnerf_torch import kernels
 from evdeblurnerf_torch.kernels import build
-from evdeblurnerf_torch.ops import fused_sample, lane_shuffle, triplane
+from evdeblurnerf_torch.ops import (fused_sample, lane_shuffle, line_matmul,
+                                   triplane)
 
 PKG = Path(evdeblurnerf_torch.__file__).parent
 REPO = PKG.parent
@@ -46,6 +47,49 @@ print("ok")
 """
 
 
+_TRAIN_ON_CPU = """
+import sys
+import torch
+import chip_smoke
+from evdeblurnerf_torch import kernels
+from evdeblurnerf_torch.train import state as tstate, step as tstep
+
+args = chip_smoke.train_args(
+    coarse_n_voxels=512, fine_n_voxels=1000, coarse_app_n_comp=[2, 1, 1],
+    fine_app_n_comp=[2, 1, 1], coarse_hidden_dim=4, coarse_hidden_dim_color=4,
+    fine_hidden_dim=4, fine_hidden_dim_color=4, fine_geo_feat_dim=4,
+    N_samples=4, N_importance=4, kernel_ptnum=3)
+model, crf = tstate.build_model(args, chip_smoke.AABB, 8, 8, 8.0, 0.0, 1.0, 4,
+                                torch.Generator().manual_seed(0))
+state = tstate.create_train_state(model, crf, args,
+                                  torch.Generator().manual_seed(1),
+                                  crf_prefit_steps=5)
+batch, ev = chip_smoke.make_train_batch(torch.device("cpu"), 8, 4)
+batch["images_idx"] %= 4
+aux = tstep.build_train_step(args)(state, batch, ev,
+                                   tstep.schedule_weights_fn(args)(0),
+                                   False, True)
+assert bool(torch.isfinite(aux["loss"])) and state.step == 1
+assert all(v == 0 for v in kernels.LAUNCHES.values())
+loaded = [m for m in sys.modules if m.split(".")[0] in
+          ("jax", "jaxlib", "flax", "optax", "evdeblurnerf_tpu")]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_cpu_train_step_loads_no_jax():
+    """A training step of the paper's method at a tiny width, on the CPU,
+    through chip_smoke's flags: nothing of jax, flax, optax or the JAX
+    package is imported."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_ON_CPU], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_import_and_cpu_render_load_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _RENDER_ON_CPU], cwd=REPO,
@@ -65,10 +109,13 @@ def test_no_module_imports_jax():
 def test_cuda_sources_exist_with_their_notes():
     names = {p.name for p in build.sources()}
     assert {"common.cuh", "lane_shuffle.cu", "fused_sample.cu",
-            "api.cu"} <= names
+            "line_matmul.cu", "api.cu"} <= names
     for src, replaced in (("lane_shuffle.cu", "_take2d_kernel"),
+                          ("lane_shuffle.cu", "_take3d_kernel"),
                           ("lane_shuffle.cu", "_cdf_kernel"),
-                          ("fused_sample.cu", "_fwd_kernel")):
+                          ("fused_sample.cu", "_fwd_kernel"),
+                          ("fused_sample.cu", "_bwd_kernel"),
+                          ("line_matmul.cu", "_grad_kernel")):
         text = (build.CSRC_DIR / src).read_text()
         assert replaced in text and "Bound:" in text
     for sig in build.SIGNATURES:
@@ -100,8 +147,9 @@ def _tiny_tables():
     return triplane.pack_grids(planes, lines)
 
 
-@pytest.mark.parametrize("op", ["permute_lanes", "cdf_take",
-                                "triplane_features"])
+@pytest.mark.parametrize("op", ["permute_lanes", "permute_lanes_3d",
+                                "cdf_take", "triplane_features",
+                                "triplane_features_bwd", "line_grad"])
 def test_kernel_path_raises_without_fallback(no_nvcc, monkeypatch, op):
     """When a wrapper takes the kernel path and the kernel cannot be
     built, the error reaches the caller: no wrapper catches it and carries
@@ -112,13 +160,24 @@ def test_kernel_path_raises_without_fallback(no_nvcc, monkeypatch, op):
     idx = torch.arange(8, dtype=torch.int32).expand(4, 8).contiguous()
     with pytest.raises(RuntimeError, match="nvcc"):
         if op == "permute_lanes":
-            lane_shuffle.permute_lanes(x, idx)
+            lane_shuffle.permute_lanes(x, idx, idx)
+        elif op == "permute_lanes_3d":
+            lane_shuffle.permute_lanes(x[:, None], idx, idx)
         elif op == "cdf_take":
             lane_shuffle.cdf_take(x, x, idx, idx)
+        elif op == "line_grad":
+            line_matmul.line_grad(idx[0], x.T.contiguous(), 8)
         else:
             pp, pl, sizes = _tiny_tables()
-            fused_sample.triplane_features(pp, pl, sizes,
-                                           torch.rand(6, 3) * 2 - 1)
+            xyz = torch.rand(6, 3) * 2 - 1
+            if op == "triplane_features":
+                fused_sample.triplane_features(pp, pl, sizes, xyz)
+            else:
+                planes = [p[:, :p.shape[1] // 4].T.reshape(-1, h, w)
+                          for p, (h, w, _) in zip(pp, sizes)]
+                lines = [l[:, :l.shape[1] // 2].T for l in pl]
+                fused_sample.triplane_features_bwd(
+                    planes, lines, (pp, pl, sizes), xyz, torch.rand(6, 4))
     assert kernels.LAUNCHES[op] == 0
 
 
