@@ -5,7 +5,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and the CUDA toolkit (``nvcc``), and exits non-zero, printing no
 result, when either is missing or any check fails. It imports nothing of
 jax and nothing of the JAX package. Phases, one line each (phase 3 one
-per kernel):
+per kernel, phase 8 a few):
 
 1. environment: torch/CUDA versions, the card's name and power limit,
    TF32 off;
@@ -20,8 +20,17 @@ per kernel):
    (with K6 for the line tables) at the same N, every gradient within 1e-5
    of its largest magnitude against autograd of the plain sampler, and K6
    ``line_grad`` at the fine line table within 1e-5 (atomics add in
-   another order, run to run). Times are CUDA-event means after warm-up,
-   taken in the order plain, kernel, kernel, plain;
+   another order, run to run); K7 ``tiled_plane_gather`` at its bench's
+   shapes (a 512 x 512 x 64 plane, the 1,310,720 sample points of one
+   step, tiles 32x32, 64x64 and 48x128): rows inside their tile bitwise
+   equal to the plain version's (the bound is 1e-6 of the largest
+   magnitude), spilled rows exactly zero, the fallback within 1e-5 of a
+   direct bilinear gather, NaN when the spills pass the capacity. Times
+   are CUDA-event means after warm-up, taken in the order plain, kernel,
+   kernel, plain; beside them the time of the one PyTorch call that
+   computes the same function, where there is one (``torch.gather``,
+   ``index_add_``, ``F.grid_sample``), and the least time the card could
+   take (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32);
 4. the serving path at the paper width (the model of ``bench.py``: 64+64
    samples, 16.8M/134M-voxel grids, app_n_comp (64, 16, 16), fine width
    256): seeded random weights saved as a reference ``*.tar``, loaded
@@ -42,7 +51,22 @@ per kernel):
 7. card against CPU, one training step at the same width on 64 x 10 +
    2 x 64 rays with perturb 0 and no sigma noise: the loss and every
    parameter's gradient through the kernels on the card and through the
-   plain versions on the CPU.
+   plain versions on the CPU;
+8. a training run through the CLI path (``evdeblurnerf_torch.cli.main``)
+   at the same full width, on a synthetic LLFF + events scene written with
+   numpy into a temporary directory and read through two small dataset
+   subclasses (``tools/synthetic_scene_torch.py``; the card machine has
+   no image or HDF5 library): train across the kernel start, the event start and the CRF
+   learn start with a checkpoint mid-run and the testset render at the
+   last step; auto-resume from the newest checkpoint and train on; then
+   ``--render_only --render_test``. Every logged loss finite, the resumed
+   run at the saved step and learning rate, one ``test_metrics.txt`` line
+   per testset render, the render-only images equal to the last testset
+   render's, the checkpoint loadable through ``serving.build_renderer``,
+   every training kernel launched, and the prefetcher's card batches
+   equal to the CPU's;
+9. K7's own path, ``tools/bench_tiled_gather_torch.py``, run through its
+   entry point.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -51,13 +75,18 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
+import importlib.util
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -83,59 +112,15 @@ SERVE_FLAGS = dict(
     fine_app_actfn="none",
     kernel_type="RBK", kernel_feat_cnl=15,
     tone_mapping_type="gamma", tone_mapping_gamma=2.2, chunk=CHUNK)
-# the flags the training path reads: the values of configs/
-# evdeblurnerf_blender/tx_blurfactory_evdeblurnerf_ediprior_evcrf.txt (the
-# paper's full method), the flag table's defaults for the flags that file
-# leaves unset, and the two overrides that make the blur kernel and the
-# learned CRF live from step 0 (kernel_start_iter and
-# tone_mapping_start_learn_iter, 1200 in the file). Kept here rather than
-# parsed, so that this script loads nothing of the JAX package, whose flag
-# table evdeblurnerf_torch.config reads; tests/test_torch_train.py pins it
-# against that parse.
+# the training path's flags: configs/evdeblurnerf_blender/
+# tx_blurfactory_evdeblurnerf_ediprior_evcrf.txt (the paper's full method)
+# parsed by the port's own parser, with the two overrides that make the
+# blur kernel and the learned CRF live from step 0 (1200 in the file)
 PAPER_CONFIG = ("configs/evdeblurnerf_blender/"
                 "tx_blurfactory_evdeblurnerf_ediprior_evcrf.txt")
 PAPER_OVERRIDES = dict(kernel_start_iter=0, tone_mapping_start_learn_iter=0)
-TRAIN_FLAGS = dict(
-    N_rand=1024, events_N_rand=4096, N_importance=64, N_samples=64,
-    add_event_egm_stages=["stage0", "stage1"], align_end_iter=1e10,
-    align_start_iter=0, blur_loss_after=0, clip_grads_norm=None,
-    coarse_app_actfn="none", coarse_app_dim=32, coarse_app_n_comp=[64, 16, 16],
-    coarse_hidden_dim=64, coarse_hidden_dim_color=64,
-    coarse_n_voxels=16777248, coarse_num_layers=2, coarse_num_layers_color=3,
-    colornet_weightdecay=None, event_egm_use_color_weights=None,
-    event_egm_use_colorevents=False, event_egm_weight=0.1,
-    event_egm_weight_end=1.0, event_egm_weight_scheduler="constant",
-    event_egm_weight_steps=None, events_threshold=0.2,
-    events_threshold_neg=0.2, events_threshold_pos=0.2,
-    fine_app_actfn="none", fine_app_dim=32, fine_app_n_comp=[64, 16, 16],
-    fine_cull_capacity=0.0, fine_geo_feat_dim=128, fine_hidden_dim=256,
-    fine_hidden_dim_color=256, fine_n_voxels=134217984, fine_num_layers=2,
-    fine_num_layers_color=3, kernel_align_weight=0.0,
-    kernel_awp_fine_loss_start_ratio=0.1, kernel_awp_mot_emb_depth=1,
-    kernel_awp_mot_emb_width=32, kernel_awp_ray_dir_freq=2,
-    kernel_awp_sam_emb_depth=4, kernel_awp_sam_emb_width=64,
-    kernel_awp_use_coarse_to_fine_opt=True, kernel_feat_cnl=15,
-    kernel_img_embed=32, kernel_img_embed_init="zero",
-    kernel_img_embed_type="param", kernel_ptnum=10, kernel_rbk_ccw_depth=1,
-    kernel_rbk_ccw_width=32, kernel_rbk_extra_feat_ch=0,
-    kernel_rbk_se_r_depth=1, kernel_rbk_se_r_output_ch=3,
-    kernel_rbk_se_r_width=32, kernel_rbk_se_rv_window=0.1,
-    kernel_rbk_se_v_depth=1, kernel_rbk_se_v_output_ch=3,
-    kernel_rbk_se_v_width=32, kernel_rbk_use_origin=True,
-    kernel_start_iter=0, kernel_start_warmup_iters=1,
-    kernel_start_warmup_mode="step", kernel_tv_loss_weight=1.0,
-    kernel_type="RBK", kernel_use_awp=True, lindisp=False, lrate=0.005,
-    lrate_decay=10, lrate_warmup_factor=0.1, lrate_warmup_iters=-1,
-    mode="c2f", multires=10, multires_views=4, no_log_grads_norm=False,
-    no_ndc=False, perturb=1.0, pts0_target_end_iter=9999999,
-    pts0_target_start_iter=0, pts0_target_weight=0.01,
-    pts0_target_weight_end=1e-05, pts0_target_weight_scheduler="cosine",
-    pts0_target_weight_steps=10000, raw_noise_std=1.0, render_rmnearplane=0,
-    rgb_add_bias=False, tone_mapping_events_add_bii="pos-neg",
-    tone_mapping_events_type="learn", tone_mapping_gamma=2.2,
-    tone_mapping_learn_init_identity=True, tone_mapping_start_learn_iter=0,
-    tone_mapping_type="gamma", triplane_bf16=False, use_events=True,
-    use_pts0_prior="edi", use_viewdirs=True)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
 NUM_IMAGES = 30         # bench.py's scene
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 AB_RAYS, AB_EV_RAYS = 64, 64
@@ -226,10 +211,33 @@ def phase_build():
     return secs
 
 
-def _kernel_entry(source, replaces, err, ms, plain_ms, **extra):
-    return dict(route="cuda", source=f"evdeblurnerf_torch/csrc/{source}",
-                replaces=replaces, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, **extra)
+def _kernel_entry(source, replaces, err, ms, plain_ms, nbytes=0, flops=0,
+                  library_ms=None, **extra):
+    """One kernel's record. ``nbytes``: what the function must move at
+    these inputs (each input read once, each output written once; of a
+    table that is gathered from, no more than the rows the points can
+    touch); ``flops``: its float32 operations. The bound is the larger of
+    the two over the card's published rates."""
+    entry = dict(route="cuda", source=f"evdeblurnerf_torch/csrc/{source}",
+                 replaces=replaces, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, library_ms=library_ms, **extra)
+    return _set_bound(entry, nbytes, flops)
+
+
+def _set_bound(entry, nbytes, flops):
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / F32_FLOPS_PER_S
+    entry.update(bound_ms=max(by_bytes, by_ops), bytes=int(nbytes),
+                 flops=int(flops),
+                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+    return entry
+
+
+def _touched_bytes(grid, n_points, corners):
+    """Bytes of a [C, ...] f32 grid that ``n_points`` samples of
+    ``corners`` cells each need: every point's cells over all channels,
+    and no more than the whole grid."""
+    return 4 * min(grid.numel(), n_points * corners * grid.shape[0])
 
 
 def _paper_grids(dev, g, n_vox):
@@ -277,9 +285,13 @@ def phase_kernels(dev):
               f"K1 permute_lanes [{R}, {S}] differs from its plain version")
     ms, plain_ms = ab_ms(lambda: take(x, perm),
                          lambda: lane_shuffle.permute_lanes(x, perm, inv))
+    # x and the index read, the output written: 3 arrays of R * S words
+    k1_bytes = 3 * 4 * R * S
+    perm64 = perm.long()
     results["permute_lanes"] = _kernel_entry(
         "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:137", 0.0,
-        ms, plain_ms)
+        ms, plain_ms, k1_bytes,
+        library_ms=cuda_ms(lambda: torch.gather(x, -1, perm64)))
     xg = x.clone().requires_grad_()
     cot = torch_randn(dev, g, R, S)
     lane_shuffle.permute_lanes(xg, perm, inv).backward(cot)
@@ -288,9 +300,11 @@ def phase_kernels(dev):
     # the backward's launch: the same kernel by the inverse permutation
     ms, plain_ms = ab_ms(lambda: take(cot, inv),
                          lambda: lane_shuffle._take(cot, inv, True))
+    inv64 = inv.long()
     results["permute_lanes_bwd"] = _kernel_entry(
         "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:137", 0.0,
-        ms, plain_ms)
+        ms, plain_ms, k1_bytes,
+        library_ms=cuda_ms(lambda: torch.gather(cot, -1, inv64)))
     del x, xg, cot
 
     # K2: AWP's per-sample features [R, C, S] into depth order, and back
@@ -306,15 +320,22 @@ def phase_kernels(dev):
     x3 = x3.detach()
     ms, plain_ms = ab_ms(lambda: take(x3, perm),
                          lambda: lane_shuffle._take(x3, perm, False))
+    # x read and the output written ([R, C, S]), one index per ray sample
+    k2_bytes = 4 * (2 * TRAIN_RAYS * C * TRAIN_SAMPLES
+                    + TRAIN_RAYS * TRAIN_SAMPLES)
+    perm3 = perm64[:, None, :].expand(-1, C, -1)
     results["permute_lanes_3d"] = _kernel_entry(
         "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:166", 0.0,
-        ms, plain_ms)
+        ms, plain_ms, k2_bytes,
+        library_ms=cuda_ms(lambda: torch.gather(x3, -1, perm3)))
     ms, plain_ms = ab_ms(lambda: take(cot3, inv),
                          lambda: lane_shuffle._take(cot3, inv, True))
+    inv3 = inv64[:, None, :].expand(-1, C, -1)
     results["permute_lanes_3d_bwd"] = _kernel_entry(
         "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:166", 0.0,
-        ms, plain_ms)
-    del x3, out3, cot3
+        ms, plain_ms, k2_bytes,
+        library_ms=cuda_ms(lambda: torch.gather(cot3, -1, inv3)))
+    del x3, out3, cot3, perm3, inv3
     torch.cuda.empty_cache()
 
     # K3: the four gathers of sample_pdf at R=32768, M=63, N=64
@@ -338,7 +359,9 @@ def phase_kernels(dev):
     results["cdf_take"] = _kernel_entry(
         "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:259",
         max(float((a - b).abs().max()) for a, b in zip(outs, refs)), ms,
-        plain_ms)
+        plain_ms,
+        # cdf and bins [R, M], two indices and four outputs [R, N]
+        4 * R * (2 * M + 6 * N))
 
     # K4 forward and K5 backward on coarse- and fine-size tables; points
     # reach past [-1, 1] so the zeros-padding and clip rules run, as they
@@ -350,8 +373,9 @@ def phase_kernels(dev):
     k5 = _kernel_entry("fused_sample.cu",
                        "evdeblurnerf_tpu/ops/fused_sample.py:112", 0.0, 0, 0,
                        max_rel_err=0.0)
-    for label, n_vox in (("coarse", TRAIN_FLAGS["coarse_n_voxels"]),
-                         ("fine", TRAIN_FLAGS["fine_n_voxels"])):
+    paper = train_args()
+    for label, n_vox in (("coarse", paper.coarse_n_voxels),
+                         ("fine", paper.fine_n_voxels)):
         grid, planes, lines = _paper_grids(dev, g, n_vox)
         packed = triplane.pack_grids(planes, lines)
         got = fused_sample.triplane_features(*packed, xyz)
@@ -370,6 +394,22 @@ def phase_kernels(dev):
         k4["max_abs_err"] = max(k4["max_abs_err"], err)
         k4[f"ms_{label}"], k4[f"plain_ms_{label}"] = ms, plain_ms
         k4[f"grid_{label}"] = list(grid)
+        # xyz and the touched table rows read, [N, 96] written; per point
+        # and channel 4 + 2 slot products, their sums and plane x line
+        n_ch = sum(p.shape[0] for p in planes)
+        # (the neighbour-packed tables hold each cell several times; the
+        # function's data is the raw grids, so those cap the count)
+        rows_bytes = (sum(_touched_bytes(p, K4_POINTS, 4) for p in planes)
+                      + sum(_touched_bytes(ln, K4_POINTS, 2) for ln in lines))
+        k4_bytes = 4 * K4_POINTS * (3 + n_ch) + rows_bytes
+        # K5 reads xyz, the cells and the cotangent, and writes the three
+        # plane gradients, the three [C, D] line gradients and d(xyz);
+        # the per-point line-row cotangents between it and K6 are scratch
+        k5_bytes = (4 * K4_POINTS * (3 + n_ch) + rows_bytes
+                    + 4 * sum(p.numel() for p in planes)
+                    + 4 * sum(ln.numel() for ln in lines)
+                    + 4 * K4_POINTS * 3)
+        k4_flops, k5_flops = 11 * n_ch * K4_POINTS, 40 * n_ch * K4_POINTS
 
         got = fused_sample.triplane_features_bwd(planes, lines, packed, xyz,
                                                  cot)
@@ -401,13 +441,15 @@ def phase_kernels(dev):
         torch.cuda.empty_cache()
     k4["ms"], k4["plain_ms"] = k4["ms_fine"], k4["plain_ms_fine"]
     k5["ms"], k5["plain_ms"] = k5["ms_fine"], k5["plain_ms_fine"]
+    # the bounds at the fine tables, the last of the loop
+    _set_bound(k4, k4_bytes, k4_flops)
+    _set_bound(k5, k5_bytes, k5_flops)
     results["triplane_features"] = k4
     results["triplane_features_bwd"] = k5
     del xyz, cot
 
     # K6 at the fine 64-component line table: D = 366 rows of 2C = 128
-    D = compute_grid_size(AABB[0], AABB[1],
-                          TRAIN_FLAGS["fine_n_voxels"])[2]
+    D = compute_grid_size(AABB[0], AABB[1], paper.fine_n_voxels)[2]
     idx = torch.randint(0, D, (K4_POINTS,), generator=g, device=dev,
                         dtype=torch.int32)
     rows = torch_randn(dev, g, K4_POINTS, 128)
@@ -420,19 +462,128 @@ def phase_kernels(dev):
           f"{GRAD_REL_TOL} x {scale:.3e}")
     ms, plain_ms = ab_ms(lambda: line_matmul.line_grad_plain(idx, rows, D),
                          lambda: line_matmul.line_grad(idx, rows, D))
+    idx64 = idx.long()
     results["line_grad"] = _kernel_entry(
         "line_matmul.cu", "evdeblurnerf_tpu/ops/line_matmul.py:39", err,
-        ms, plain_ms, max_rel_err=err / scale)
+        ms, plain_ms,
+        # the index and g [N, 128] read, the [D, 128] table written; one
+        # add per element of g
+        4 * (K4_POINTS * 129 + D * 128), K4_POINTS * 128,
+        library_ms=cuda_ms(lambda: torch.zeros(
+            D, 128, device=dev).index_add_(0, idx64, rows)),
+        max_rel_err=err / scale)
     del rows, got, want
     torch.cuda.empty_cache()
+    results["tiled_plane_gather"] = kernel_tiled_gather(dev)
 
     for name, r in results.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"[3 kernel] {name}: max_abs_err {r['max_abs_err']:.3e}, "
               f"kernel {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
               + (f" (coarse tables: {r['ms_coarse']:.4f} vs "
                  f"{r['plain_ms_coarse']:.4f} ms)" if "ms_coarse" in r
-                 else ""))
+                 else "")
+              + f"; library call {lib}; bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops)")
     return results
+
+
+K7_TILES = ((32, 32), (64, 64), (48, 128))
+K7_REL_TOL = 1e-6        # rows inside their tile, of the largest magnitude
+K7_FALLBACK_TOL = 1e-5   # the patched output against a direct gather
+
+
+def _load_tool(name):
+    """``tools/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _load_bench():
+    """tools/bench_tiled_gather_torch.py: K7's entry point."""
+    return _load_tool("bench_tiled_gather_torch")
+
+
+def kernel_tiled_gather(dev):
+    """K7 at its bench's shapes, against its plain twin, the fallback's
+    direct gather and the two yardsticks."""
+    import torch
+
+    from evdeblurnerf_torch.ops import tiled_gather as tg
+
+    bench = _load_bench()
+    plane, fu, fv = bench.make_inputs(dev)
+    H, W, C = plane.shape
+    N = fu.shape[0]
+    row_take, library = bench.yardsticks(plane, fu, fv)
+    direct = tg.bilinear_gather(plane, fu, fv)
+    entry = _kernel_entry(
+        "tiled_gather.cu", "evdeblurnerf_tpu/ops/tiled_gather.py:70", 0.0, 0,
+        0,
+        # the plane (no more than four rows a point), the coordinates and
+        # the origins read, [N, C] written; 6 products and 3 sums a channel
+        4 * (min(plane.numel(), 4 * N * C) + 2 * N + 2 * N // tg.GROUP
+             + N * C), 9 * N * C,
+        library_ms=cuda_ms(library), row_take_ms=cuda_ms(row_take),
+        points=N, plane=[H, W, C])
+    for TH, TW in K7_TILES:
+        tag = f"{TH}x{TW}"
+        oy, ox, ok = tg.group_origins(fu, fv, H, W, TH, TW)
+        got = tg.tiled_plane_gather(plane, fu, fv, oy, ox, TH, TW)
+        want = tg.tiled_plane_gather_plain(plane, fu, fv, oy, ox, TH, TW)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= K7_REL_TOL * scale,
+              f"K7 {tag}: max |kernel - plain| {err:.3e} exceeds "
+              f"{K7_REL_TOL} x {scale:.3e}")
+        check(bool((got[~ok] == 0).all()),
+              f"K7 {tag}: a spilled row is not zero")
+        check(float((got[ok] - direct[ok]).abs().max())
+              <= K7_FALLBACK_TOL * scale,
+              f"K7 {tag}: rows inside their tile differ from the direct "
+              "bilinear gather")
+        spill = 1.0 - float(ok.float().mean())
+        # the default capacity (an eighth of the points) unless this tile
+        # spills more: then twice its spill share
+        frac = min(1.0, max(0.125, 2 * spill))
+        patched = tg.tiled_plane_gather_with_fallback(
+            plane, fu, fv, TH, TW, spill_capacity_frac=frac)
+        fb_err = float((patched - direct).abs().max())
+        check(fb_err <= K7_FALLBACK_TOL * scale,
+              f"K7 {tag}: fallback differs from the direct gather by "
+              f"{fb_err:.3e}")
+        bitwise = bool(torch.equal(got, want))
+        del patched, want, got
+        ms, plain_ms = ab_ms(
+            lambda: tg.tiled_plane_gather_plain(plane, fu, fv, oy, ox, TH,
+                                                TW),
+            lambda: tg.tiled_plane_gather(plane, fu, fv, oy, ox, TH, TW))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry[f"ms_{tag}"], entry[f"plain_ms_{tag}"] = ms, plain_ms
+        entry[f"spill_{tag}"] = spill
+        entry[f"bitwise_{tag}"] = bitwise
+        entry[f"fallback_err_{tag}"] = fb_err
+    # more spills than the capacity poison the output: 8x8 tiles spill
+    # most of the stream, far past max(GROUP, N / 1000) rows
+    poisoned = tg.tiled_plane_gather_with_fallback(
+        plane, fu, fv, 8, 8, spill_capacity_frac=1e-3)
+    check(bool(torch.isnan(poisoned).all()),
+          "K7: over-capacity spills did not poison the output with NaN")
+    entry["ms"], entry["plain_ms"] = entry["ms_64x64"], entry["plain_ms_64x64"]
+    print("[3 kernel] tiled_plane_gather tiles: " + "; ".join(
+        f"{TH}x{TW} kernel {entry[f'ms_{TH}x{TW}']:.3f} ms vs plain "
+        f"{entry[f'plain_ms_{TH}x{TW}']:.3f} ms, spill "
+        f"{100 * entry[f'spill_{TH}x{TW}']:.2f}%, bitwise "
+        f"{entry[f'bitwise_{TH}x{TW}']}, fallback max err "
+        f"{entry[f'fallback_err_{TH}x{TW}']:.2e}" for TH, TW in K7_TILES)
+        + f"; packed row take {entry['row_take_ms']:.3f} ms; over-capacity "
+        "case all NaN")
+    return entry
 
 
 SERVE_KERNELS = ("permute_lanes", "cdf_take", "triplane_features")
@@ -544,10 +695,15 @@ def phase_card_vs_cpu(dev, renderer, sd):
 
 
 def train_args(**overrides):
-    from evdeblurnerf_torch.config import PORT_DEFAULTS
+    """The paper configuration through the port's parser, with
+    ``PAPER_OVERRIDES`` and then ``overrides`` as command-line flags over
+    the file, and the event thresholds resolved."""
+    from evdeblurnerf_torch import config
 
-    return argparse.Namespace(**{**TRAIN_FLAGS, "grad_accum":
-                                 PORT_DEFAULTS["grad_accum"], **overrides})
+    argv = ["--config", os.path.join(REPO, PAPER_CONFIG)]
+    for k, v in {**PAPER_OVERRIDES, **overrides}.items():
+        argv += [f"--{k}", str(v)]
+    return config.resolve_event_thresholds(config.parse_args(argv))
 
 
 def make_train_batch(dev, n_rand, events_n_rand):
@@ -633,7 +789,7 @@ def phase_train(dev, card):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses += [float(v) for v in timed]
     check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
-    for name in kernels.KERNELS:
+    for name in kernels.TRAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               "training path")
     changed = {}
@@ -699,7 +855,7 @@ def phase_train_card_vs_cpu(dev, sd, crf_sd):
     share = beyond / total
     worst = max(rel.values())
     top = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
-    print(f"[7 train card vs cpu] {AB_RAYS}x{TRAIN_FLAGS['kernel_ptnum']} + "
+    print(f"[7 train card vs cpu] {AB_RAYS}x{args.kernel_ptnum} + "
           f"2x{AB_EV_RAYS} rays, perturb 0, no sigma noise: loss "
           f"{loss_card:.7g} vs {loss_cpu:.7g} (rel {rel_loss:.2e}); over "
           f"{len(g_cpu)} parameters, max |card - cpu| / max|cpu| "
@@ -711,6 +867,335 @@ def phase_train_card_vs_cpu(dev, sd, crf_sd):
     check(share <= TRAIN_GRAD_MAX_SHARE,
           f"{share:.2e} of gradient elements beyond {TRAIN_GRAD_TOL}")
     return dict(rel_loss=rel_loss, max_rel_grad=worst, share_beyond=share)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: a training run through the CLI path
+# ---------------------------------------------------------------------------
+# the scene is tools/synthetic_scene_torch.py's; its image size only sets
+# host work, the model and the batch are the paper configuration's
+LOOP_STEPS_A, LOOP_STEPS_B = 24, 12
+LOOP_GATES = dict(kernel_start_iter=4, add_event_egm_startiter=8,
+                  tone_mapping_start_learn_iter=12)
+LOOP_CKPT_EVERY = 16
+LOOP_WARMUP_B = 2        # resumed steps left out of the timed window
+
+
+def _read_png(path):
+    """An 8-bit RGB PNG as [H, W, 3] uint8: through imageio where it is
+    installed, else decoded here, which takes the unfiltered scanlines
+    that the package's stdlib writer emits."""
+    import numpy as np
+
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        pass
+    else:
+        return np.asarray(imageio.imread(path))
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, shape = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, colour = struct.unpack(">IIBB", body[:10])
+            check((depth, colour) == (8, 2), f"{path}: not 8-bit RGB")
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = shape
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(bool((raw[:, 0] == 0).all()), f"{path}: filtered scanlines")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+@contextlib.contextmanager
+def _loop_timings(tloop):
+    """Times of one ``train`` call, taken from outside the loop: for the
+    length of the block the functions that ``train/loop.py`` calls by
+    their module names are wrapped. Yields a dict that fills as the run
+    goes: host-clock seconds per call of ``build_datasets`` (with the EDI
+    prior), ``build_model``, ``build_initial_state`` (with the CRF
+    pre-fit), ``run_test_renders`` and ``CheckpointManager.save``;
+    ``step_call_s``, the host's seconds inside each call of the train
+    step (the device may still be running it); and ``step_events``, one
+    CUDA timing event per step, recorded on the compute stream after the
+    step's work: the time between two of them is the loop's time on the
+    device's own clock, host stalls included."""
+    import torch
+
+    tm = {}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            tm.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def build_train_step(args):
+        step = timed(saved["build_train_step"](args), "step_call_s")
+
+        def marked(*a, **kw):
+            out = step(*a, **kw)
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record()
+            tm.setdefault("step_events", []).append(mark)
+            return out
+        return marked
+
+    names = ("build_datasets", "build_model", "build_initial_state",
+             "run_test_renders", "build_train_step")
+    saved = {n: getattr(tloop, n) for n in names}
+    save = tloop.CheckpointManager.save
+    try:
+        for n in names[:-1]:
+            setattr(tloop, n, timed(saved[n], f"{n}_s"))
+        tloop.build_train_step = build_train_step
+        tloop.CheckpointManager.save = timed(save, "checkpoint_s")
+        yield tm
+    finally:
+        for n in names:
+            setattr(tloop, n, saved[n])
+        tloop.CheckpointManager.save = save
+
+
+def _metric_stream(path, first_line=0):
+    """({tag: [(step, value)]}, number of lines) of a ``metrics.jsonl``
+    from line ``first_line`` on."""
+    out, n = {}, 0
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            if n > first_line:
+                rec = json.loads(line)
+                if "value" in rec:
+                    out.setdefault(rec["tag"], []).append(
+                        (rec["step"], rec["value"]))
+    return out, n
+
+
+def phase_loop(dev, card, step_only):
+    """Phase 8 (module docstring). ``step_only``: phase 6's figures."""
+    import numpy as np
+    import torch
+
+    from evdeblurnerf_torch import cli, kernels, serving
+    from evdeblurnerf_torch.data import (Prefetcher, RandomEventSampler,
+                                         RandomRaySampler)
+    from evdeblurnerf_torch.ops import events_native
+    from evdeblurnerf_torch.train import loop as tloop
+    from evdeblurnerf_torch.train.optim import lr_schedule
+
+    synth = _load_tool("synthetic_scene_torch")
+    llff_cls, events_cls = synth.scene_classes()
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene")
+        os.makedirs(scene)
+        t0 = time.perf_counter()
+        n_events = synth.write_scene(scene, train_args().events_threshold,
+                                     SEED)
+        scene_s = time.perf_counter() - t0
+
+        def flags(**extra):
+            logs = os.path.join(tmp, "logs")
+            merged = dict(datadir=scene, basedir=logs, tbdir=logs,
+                          expname="loop", no_wandb=True, i_video=10 ** 9,
+                          **extra)
+            argv = ["--config", os.path.join(REPO, PAPER_CONFIG)]
+            for k, v in merged.items():
+                argv += [f"--{k}", str(v)]
+            return argv
+
+        # the datasets once by hand: their build times, and the card's
+        # batches against the CPU's on the same sampler seeds
+        from evdeblurnerf_torch import config
+
+        args = config.resolve_event_thresholds(config.parse_args(flags()))
+        t0 = time.perf_counter()
+        no_prior = argparse.Namespace(**{**vars(args), "use_pts0_prior": None})
+        llff, ev = tloop.build_datasets(no_prior, llff_cls, events_cls)
+        data_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        llff.set_pts0_prior(ev.compute_edi_prior(
+            llff.i_train, llff.images, args.pts0_edi_steps,
+            args.events_threshold_pos, args.events_threshold_neg))
+        edi_s = time.perf_counter() - t0
+        check(len(ev) >= args.events_N_rand,
+              f"the scene has {len(ev)} events with a successor, fewer than "
+              f"one batch of {args.events_N_rand}")
+
+        def batches(device, n=3):
+            rays = iter(RandomRaySampler(llff.n_rays, args.N_rand, seed=SEED))
+            evs = iter(RandomEventSampler(len(ev), args.events_N_rand,
+                                          seed=SEED))
+            with Prefetcher(lambda: llff.batch(next(rays)),
+                            device=device) as a, \
+                    Prefetcher(lambda: ev.batch(next(evs)),
+                               device=device) as b:
+                return [({k: v.cpu() for k, v in next(a).items()},
+                         {k: v.cpu() for k, v in next(b).items()})
+                        for _ in range(n)]
+
+        for (img_c, ev_c), (img_h, ev_h) in zip(batches(dev),
+                                                batches("cpu")):
+            for got, want in ((img_c, img_h), (ev_c, ev_h)):
+                check(set(got) == set(want) and all(
+                    torch.equal(got[k], want[k]) for k in want),
+                    "a prefetched card batch differs from the CPU batch")
+        aabb = np.asarray(llff.bounding_box).tolist()
+        del llff, ev
+        print(f"[8 loop] scene {synth.SCENE_IMAGES} images "
+              f"{synth.SCENE_H}x{synth.SCENE_W}, "
+              f"{n_events} events written in {scene_s:.1f} s; dataset build "
+              f"{data_s:.2f} s, EDI prior {edi_s:.2f} s (event scans on "
+              f"{events_native.backend()}); 3 prefetched card batches equal "
+              "the CPU's")
+
+        expdir = os.path.join(tmp, "logs", "loop")
+        jsonl = os.path.join(expdir, "metrics.jsonl")
+        kw = dict(llff_cls=llff_cls, events_cls=events_cls)
+        # (a) train across the three gates, checkpoint mid-run, testset
+        # render at the last step
+        kernels.reset_launches()
+        with _loop_timings(tloop) as tm_a:
+            state = cli.main(flags(N_iters=LOOP_STEPS_A, i_print=4,
+                                   i_tensorboard=4, i_weights=LOOP_CKPT_EVERY,
+                                   i_testset=10 ** 9, **LOOP_GATES), **kw)
+        launches_a = dict(kernels.LAUNCHES)
+        check(state.step == LOOP_STEPS_A, f"run (a) ended at {state.step}")
+        for name in kernels.TRAIN_KERNELS:
+            check(launches_a[name] > 0, f"kernel {name} never launched in "
+                  "the training run")
+        ckpts = sorted(os.listdir(os.path.join(expdir, "checkpoints")))
+        check(ckpts == [f"{LOOP_CKPT_EVERY + 1:06d}.tar",
+                        f"{LOOP_STEPS_A:06d}.tar"], f"checkpoints {ckpts}")
+        stream_a, lines_a = _metric_stream(jsonl)
+        losses = stream_a["train/loss"]
+        check([s for s, _ in losses] == [*range(0, LOOP_STEPS_A, 4),
+                                         LOOP_STEPS_A - 1],
+              f"logged steps {[s for s, _ in losses]}")
+        # the Adam state across the gates: the learned CRF head has none
+        # before its learn start, so its count lags the fields'
+        opt_steps = sorted({int(s["step"]) for s in
+                            state.optimizer.state.values()})
+        check(opt_steps[-1] == LOOP_STEPS_A and opt_steps[0]
+              == LOOP_STEPS_A - LOOP_GATES["tone_mapping_start_learn_iter"],
+              f"Adam step counts {opt_steps}")
+        del state
+        torch.cuda.empty_cache()
+
+        # (b) auto-resume from the newest checkpoint, train on; the only
+        # reads off the device are at the first and the last step
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with _loop_timings(tloop) as tm_b:
+            state = cli.main(flags(N_iters=LOOP_STEPS_A + LOOP_STEPS_B,
+                                   i_print=10 ** 9,
+                                   i_tensorboard=LOOP_STEPS_A,
+                                   i_weights=10 ** 9, i_testset=10 ** 9,
+                                   **LOOP_GATES), **kw)
+        torch.cuda.synchronize()
+        launches_b = dict(kernels.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(state.step == LOOP_STEPS_A + LOOP_STEPS_B,
+              f"run (b) ended at {state.step}")
+        stream_b, _ = _metric_stream(jsonl, lines_a)
+        first_step, first_lr = stream_b["train/lr"][0]
+        want_lr = lr_schedule(args.lrate, args.lrate_decay,
+                              args.lrate_warmup_iters,
+                              args.lrate_warmup_factor)(LOOP_STEPS_A)
+        check(first_step == LOOP_STEPS_A and first_lr == want_lr,
+              f"resumed at step {first_step} with lr {first_lr}; saved step "
+              f"{LOOP_STEPS_A}, lr {want_lr}")
+        losses += stream_b["train/loss"]
+        check(all(math.isfinite(v) for _, v in losses),
+              f"non-finite loss: {losses}")
+        marks = tm_b["step_events"]
+        check(len(marks) == LOOP_STEPS_B, f"{len(marks)} step marks")
+        timed = LOOP_STEPS_B - 1 - LOOP_WARMUP_B
+        loop_ms = marks[LOOP_WARMUP_B].elapsed_time(marks[-1]) / timed
+        host_ms = 1e3 * sum(tm_b["step_call_s"][LOOP_WARMUP_B + 1:]) / timed
+        del state
+        torch.cuda.empty_cache()
+
+        # (c) render-only from the final checkpoint
+        cli.main(flags(render_only=True, render_test=True, **LOOP_GATES),
+                 **kw)
+        last = LOOP_STEPS_A + LOOP_STEPS_B
+        lines = open(os.path.join(expdir, "test_metrics.txt")).read() \
+            .splitlines()
+        check(len(lines) == 2 and all(
+            line.startswith(f"iter {s}: mse=") and " psnr=" in line
+            and " ssim=" in line for line, s in
+            zip(lines, (LOOP_STEPS_A - 1, last - 1))),
+            f"test_metrics.txt: {lines}")
+        tests = sorted(glob.glob(os.path.join(
+            expdir, f"testset_{last - 1:06d}", "*.png")))
+        renders = sorted(glob.glob(os.path.join(
+            expdir, f"renderonly_test_{last:06d}", "*.png")))
+        check(len(tests) == len(renders) == 3,
+              f"{len(tests)} testset and {len(renders)} render-only images")
+        for a, b in zip(tests, renders):
+            check(bool((_read_png(a) == _read_png(b)).all()),
+                  f"{os.path.basename(b)}: the render-only image differs "
+                  "from the last testset render")
+
+        # the checkpoint through the serving entry point
+        sd = serving.load_network_state_dict(os.path.join(
+            expdir, "checkpoints", f"{last:06d}.tar"))
+        h, w, focal = synth.SCENE_H, synth.SCENE_W, synth.SCENE_FOCAL
+        K = [[focal, 0.0, w / 2], [0.0, focal, h / 2], [0.0, 0.0, 1.0]]
+        renderer = serving.build_renderer(args, sd, h, w, K, 0.0, 1.0, aabb,
+                                          device=dev)
+        check(len(renderer.unused_keys) > 0, "no blur-kernel keys in the "
+              "checkpoint")
+        del renderer, sd
+        torch.cuda.empty_cache()
+
+    rays = step_only["rays_per_step"]
+    rate = rays / (loop_ms / 1e3)
+    step_ms = 1e3 * step_only["seconds"] / TRAIN_STEPS
+    print(f"[8 loop] {PAPER_CONFIG} through cli.main on {card}: (a) "
+          f"{LOOP_STEPS_A} steps across {LOOP_GATES}, checkpoints {ckpts}, "
+          f"testset render; (b) resumed at step {first_step} with lr "
+          f"{first_lr:.6g}, {LOOP_STEPS_B} steps; (c) render-only images "
+          f"equal the last testset render's; losses "
+          f"{[(s, round(v, 5)) for s, v in losses]}; Adam step counts "
+          f"{opt_steps}")
+    print(f"[8 loop] through the loop: {loop_ms:.1f} ms/step = {rate:.1f} "
+          f"train rays/s over {timed} steps of run (b) on the device's "
+          f"clock (step only, phase 6: {step_ms:.1f} ms/step, "
+          f"{step_only['rays_per_s']:.1f} rays/s; host share "
+          f"{100 * (loop_ms - step_ms) / loop_ms:.1f}%); host time inside the "
+          f"step call {host_ms:.1f} ms/step; peak {peak_gib:.2f} GiB; "
+          f"seconds: datasets {tm_a['build_datasets_s'][0]:.2f}, model "
+          f"{tm_a['build_model_s'][0]:.2f}, state with the CRF pre-fit "
+          f"{tm_a['build_initial_state_s'][0]:.2f}, checkpoint save "
+          f"{[round(v, 2) for v in tm_a['checkpoint_s']]}, testset render "
+          f"{[round(v, 2) for v in tm_a['run_test_renders_s']]}; launches "
+          f"in (b) "
+          f"{launches_b}")
+    return launches_b, dict(loop_ms=loop_ms, rays_per_s=rate,
+                            peak_gib=peak_gib, host_ms=host_ms)
+
+
+def phase_bench_entry():
+    """Phase 9: K7's own path through its entry point; returns its launch
+    count on that path."""
+    from evdeblurnerf_torch import kernels
+
+    bench = _load_bench()
+    kernels.reset_launches()
+    print("[9 bench_tiled_gather_torch]")
+    bench.main(["--iters", "3"])
+    n = kernels.LAUNCHES["tiled_plane_gather"]
+    check(n > 0, "kernel tiled_plane_gather never launched on its bench "
+          "entry point")
+    return n
 
 
 def main():
@@ -737,8 +1222,11 @@ def main():
         phase_card_vs_cpu(dev, renderer, sd)
         del renderer, sd
         torch.cuda.empty_cache()
-        train_launches, sd, crf_sd, _ = phase_train(dev, card)
+        train_launches, sd, crf_sd, step_only = phase_train(dev, card)
         phase_train_card_vs_cpu(dev, sd, crf_sd)
+        del sd, crf_sd
+        loop_launches, _ = phase_loop(dev, card, step_only)
+        bench_launches = phase_bench_entry()
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                          "evdeblurnerf_tpu")]
@@ -746,8 +1234,12 @@ def main():
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # launches: of the training kernels in phase 6's timed steps, of K7 on
+    # its bench entry point; beside them the counts of the other paths
     for name, r in kernel_results.items():
-        r["launches"] = train_launches[name]
+        r["launches"] = (bench_launches if name == "tiled_plane_gather"
+                         else train_launches[name])
+        r["launches_loop"] = loop_launches[name]
         if name in SERVE_KERNELS:
             r["launches_serve"] = serve_launches[name]
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in

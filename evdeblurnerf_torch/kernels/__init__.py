@@ -7,7 +7,8 @@ PyTorch twin beside it:
   K2 ``permute_lanes_3d`` forward and backward, K3 ``cdf_take``;
 * ``ops/fused_sample.py``: K4 ``triplane_features`` and K5
   ``triplane_features_bwd``;
-* ``ops/line_matmul.py``: K6 ``line_grad``.
+* ``ops/line_matmul.py``: K6 ``line_grad``;
+* ``ops/tiled_gather.py``: K7 ``tiled_plane_gather``.
 
 The wrapper asks :func:`wants_kernel`:
 
@@ -36,7 +37,10 @@ from . import build
 # launched with the inverse permutation)
 KERNELS = ("permute_lanes", "permute_lanes_bwd", "permute_lanes_3d",
            "permute_lanes_3d_bwd", "cdf_take", "triplane_features",
-           "triplane_features_bwd", "line_grad")
+           "triplane_features_bwd", "line_grad", "tiled_plane_gather")
+# what one training step launches; K7 lies on no model path and runs from
+# its own entry point, tools/bench_tiled_gather_torch.py
+TRAIN_KERNELS = KERNELS[:-1]
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

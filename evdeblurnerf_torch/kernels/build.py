@@ -53,6 +53,8 @@ SIGNATURES = {
     + (_I, _P),
     # idx, g, out, n, D, W, device, stream
     "evdn_line_grad": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # plane, fu, fv, oy, ox, out, groups, H, W, C, TH, TW, device, stream
+    "evdn_tiled_plane_gather": (_P,) * 6 + (_L,) + (_I,) * 5 + (_I, _P),
 }
 
 _lock = threading.Lock()

@@ -23,38 +23,13 @@ the fields repack their tables (``models/voxnerf.py``).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Tuple
 
 import torch
 
 from ..utils.events import egm_loss
+from ..utils.misc import annealing_interpolator
 from .optim import set_lr
-
-
-def annealing_interpolator(start_value, end_value, end_step,
-                           method: str = "linear", start_step: int = 0):
-    """step -> value schedule, linear / cosine / constant (counterpart of
-    ``evdeblurnerf_tpu/utils/misc.py::annealing_interpolator``, ref:
-    utils/misc.py:15-55, with the linear branch's unshifted step)."""
-    if method == "constant":
-        return lambda step: start_value
-
-    def interpolate(step):
-        if step >= end_step:
-            return end_value
-        if step < start_step:
-            return start_value
-        if method == "linear":
-            slope = (end_value - start_value) / (end_step - start_step)
-            return start_value + slope * step
-        cos_factor = (1 + math.cos(math.pi * (step - start_step)
-                                   / (end_step - start_step))) / 2
-        return start_value * cos_factor + end_value * (1 - cos_factor)
-
-    if method not in ("linear", "cosine"):
-        raise ValueError(f"Unsupported method: {method}")
-    return interpolate
 
 
 def schedule_weights_fn(args, events_active: bool = True):

@@ -13,6 +13,9 @@ gain their trailing unit axes), planes gain a leading batch axis
 BatchNorm's statistics become ``running_mean``/``running_var``, and the
 reference's never-run ``awpnet.MAM.conv`` and the BatchNorm step counters
 are synthesised so strict loading succeeds.
+:func:`train_checkpoint_from_jax` puts both into the dictionary that
+``train/checkpoint.py`` resumes from, so a JAX train state's weights start
+a run of the port.
 """
 
 from __future__ import annotations
@@ -172,3 +175,22 @@ def crf_state_dict_from_jax(crf_params: Mapping) -> Dict[str, torch.Tensor]:
     if unmapped:
         raise ValueError(f"cannot map CRF leaves: {sorted(unmapped)}")
     return sd
+
+
+def train_checkpoint_from_jax(params: Mapping, batch_stats: Mapping = None,
+                              step: int = 0) -> Dict[str, object]:
+    """A checkpoint in the layout of ``train/checkpoint.py`` from the
+    fields of a JAX ``TrainState`` pulled to the host as numpy trees:
+    ``params = {'nerf': ..., 'crf': ...}`` and the BatchNorm statistics
+    ``batch_stats``. The optimizer starts fresh (Adam moments do not carry
+    across frameworks) and the random stream from the resuming process's
+    seed. ``torch.save`` it as ``{step:06d}.tar`` into a run's checkpoint
+    directory and the port's loop resumes from it."""
+    variables = {"params": params["nerf"], "batch_stats": batch_stats or {}}
+    return {
+        "global_step": int(step),
+        "network_state_dict": state_dict_from_jax(variables),
+        "crf_state_dict": crf_state_dict_from_jax(params.get("crf", {})),
+        "optimizer_state_dict": None,
+        "wandb_id": None,
+    }

@@ -12,7 +12,9 @@ contraction), so it is held to 1e-6 of the output's largest magnitude and
 is expected to be exact. K5 and K6 add with atomics, in an order that
 changes from run to run, and K5 contracts its products into FMAs: they are
 held to 1e-5 of each gradient's largest magnitude (f32 sums of up to a few
-thousand terms per entry in another order).
+thousand terms per entry in another order). K7 multiplies and adds where
+its plain twin does (no FMA contraction) and must equal it bitwise, with
+exact zeros on the spilled rows.
 """
 
 import pytest
@@ -22,7 +24,7 @@ from evdeblurnerf_torch import kernels
 from evdeblurnerf_torch.models.renderer import RenderConfig
 from evdeblurnerf_torch.models.system import EvDeblurNeRF
 from evdeblurnerf_torch.ops import (fused_sample, lane_shuffle, line_matmul,
-                                   triplane)
+                                   tiled_gather, triplane)
 
 pytestmark = pytest.mark.cuda
 
@@ -177,6 +179,104 @@ def test_line_grad_kernel_matches_plain(dev, D, W, n):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+def _clustered(dev, g, groups, H, W, spread, outliers):
+    """Texel coordinates of ``groups`` clusters of 128 points, a share
+    ``outliers`` of them thrown anywhere on the plane."""
+    n = groups * tiled_gather.GROUP
+    cu = torch.rand(groups, 1, generator=g, device=dev) * (W - 5) + 2
+    cv = torch.rand(groups, 1, generator=g, device=dev) * (H - 5) + 2
+    fu = cu + spread * torch.randn(groups, tiled_gather.GROUP, generator=g,
+                                   device=dev)
+    fv = cv + spread * torch.randn(groups, tiled_gather.GROUP, generator=g,
+                                   device=dev)
+    far = torch.rand(n, generator=g, device=dev) < outliers
+    fu = torch.where(far, torch.rand(n, generator=g, device=dev) * W,
+                     fu.reshape(-1))
+    fv = torch.where(far, torch.rand(n, generator=g, device=dev) * H,
+                     fv.reshape(-1))
+    return (fu.clamp(0, W - 1.001).contiguous(),
+            fv.clamp(0, H - 1.001).contiguous())
+
+
+@pytest.mark.parametrize("H,W,C,TH,TW,groups", [
+    (512, 512, 64, 64, 64, 512),      # the bench's plane, 128 KiB tile chunks
+    (512, 512, 64, 48, 128, 64),      # 192 KiB: the largest tile
+    (96, 80, 16, 32, 32, 5), (64, 64, 8, 8, 8, 4),
+    (40, 33, 12, 16, 9, 3),           # C a multiple of 4 only: 16-byte chunks
+    (33, 40, 4, 33, 40, 2)])          # the tile is the whole plane
+def test_tiled_gather_kernel_is_exact(dev, H, W, C, TH, TW, groups):
+    g = torch.Generator(device=dev).manual_seed(H * W + C)
+    plane = torch.randn(H, W, C, generator=g, device=dev)
+    fu, fv = _clustered(dev, g, groups, H, W, spread=TW / 8, outliers=0.05)
+    oy, ox, ok = tiled_gather.group_origins(fu, fv, H, W, TH, TW)
+    kernels.reset_launches()
+    got = tiled_gather.tiled_plane_gather(plane, fu, fv, oy, ox, TH, TW)
+    assert kernels.LAUNCHES["tiled_plane_gather"] == 1
+    want = tiled_gather.tiled_plane_gather_plain(plane, fu, fv, oy, ox, TH,
+                                                 TW)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool(ok.any()) and bool((got[~ok] == 0).all())
+    direct = tiled_gather.bilinear_gather(plane, fu, fv)
+    torch.testing.assert_close(got[ok], direct[ok], rtol=1e-5, atol=1e-5)
+    full = tiled_gather.tiled_plane_gather_with_fallback(
+        plane, fu, fv, TH, TW, spill_capacity_frac=1.0)
+    torch.testing.assert_close(full, direct, rtol=1e-5, atol=1e-5)
+
+
+def test_tiled_gather_clamps_origins_outside_the_plane(dev):
+    """Origins whose tiles would leave the plane: the kernel reads the
+    nearest tile inside, as its plain version does, and nothing else."""
+    H, W, C, TH, TW, groups = 96, 80, 16, 32, 32, 6
+    g = torch.Generator(device=dev).manual_seed(11)
+    plane = torch.randn(H, W, C, generator=g, device=dev)
+    fu, fv = _clustered(dev, g, groups, H, W, spread=4.0, outliers=0.05)
+    oy, ox, _ = tiled_gather.group_origins(fu, fv, H, W, TH, TW)
+    oy = oy + torch.tensor([-500, 500, 0, 7, -1, 90], dtype=torch.int32,
+                           device=dev)
+    ox = ox + torch.tensor([300, -2, -300, 0, 60, 1], dtype=torch.int32,
+                           device=dev)
+    got = tiled_gather.tiled_plane_gather(plane, fu, fv, oy, ox, TH, TW)
+    want = tiled_gather.tiled_plane_gather_plain(plane, fu, fv, oy, ox, TH,
+                                                 TW)
+    inside = tiled_gather.tiled_plane_gather(
+        plane, fu, fv, oy.clamp(0, H - TH), ox.clamp(0, W - TW), TH, TW)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, inside)
+
+
+def test_tiled_gather_poisons_and_checks_its_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    plane = torch.randn(64, 64, 8, generator=g, device=dev)
+    n = 4 * tiled_gather.GROUP
+    fu = torch.rand(n, generator=g, device=dev) * 62
+    fv = torch.rand(n, generator=g, device=dev) * 62
+    out = tiled_gather.tiled_plane_gather_with_fallback(
+        plane, fu, fv, 8, 8, spill_capacity_frac=0.01)
+    assert bool(torch.isnan(out).all())
+    oy, ox, _ = tiled_gather.group_origins(fu, fv, 64, 64, 8, 8)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tiled_gather.tiled_plane_gather(plane[..., :6].contiguous(), fu, fv,
+                                        oy, ox, 8, 8)
+    with pytest.raises(TypeError, match="int32"):
+        tiled_gather.tiled_plane_gather(plane, fu, fv, oy.long(), ox.long(),
+                                        8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled_gather.tiled_plane_gather(plane.transpose(0, 1), fu, fv, oy, ox,
+                                        8, 8)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tiled_gather.tiled_plane_gather(plane.clone().requires_grad_(), fu,
+                                        fv, oy, ox, 8, 8)
+    # a tile past the card's 227 KiB of shared memory is refused by the
+    # launch, and the refusal reaches the caller
+    big = torch.randn(128, 128, 8, generator=g, device=dev)
+    o = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tiled_gather.tiled_plane_gather(big, fu, fv, o, o, 128, 128)
+    assert kernels.LAUNCHES["tiled_plane_gather"] == 0
+
+
 def _grad_case(dev, g, comps, grid, n):
     planes, lines = _tables(dev, g, comps, grid)
     packed = triplane.pack_grids(planes, lines)
@@ -288,8 +388,8 @@ def test_tiny_train_step_card_matches_cpu_and_uses_every_kernel(dev):
         kernels.reset_launches()
         aux = step(state, batch, ev, sw, False, True)
         if device.type == "cuda":
-            assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNELS), \
-                kernels.LAUNCHES
+            assert all(kernels.LAUNCHES[k] > 0
+                       for k in kernels.TRAIN_KERNELS), kernels.LAUNCHES
         results.append(aux)
     cpu, card = results
     torch.testing.assert_close(card["loss"].cpu(), cpu["loss"], rtol=1e-5,

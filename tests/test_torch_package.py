@@ -1,6 +1,8 @@
-"""The port as a package: jax-free import and render, its CUDA sources, and
-no silent fallback when the kernels cannot be built."""
+"""The port as a package: jax-free import and render, its own flag table
+against the JAX package's, its CUDA sources, and no silent fallback when
+the kernels cannot be built."""
 
+import glob
 import os
 import re
 import subprocess
@@ -13,8 +15,10 @@ import torch
 import evdeblurnerf_torch
 from evdeblurnerf_torch import kernels
 from evdeblurnerf_torch.kernels import build
+from evdeblurnerf_torch import config as tconfig
 from evdeblurnerf_torch.ops import (fused_sample, lane_shuffle, line_matmul,
-                                   triplane)
+                                   tiled_gather, triplane)
+from evdeblurnerf_tpu import config as jconfig
 
 PKG = Path(evdeblurnerf_torch.__file__).parent
 REPO = PKG.parent
@@ -99,23 +103,152 @@ def test_import_and_cpu_render_load_no_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_PARSE_ONLY = """
+import sys
+import evdeblurnerf_torch
+import evdeblurnerf_torch.config
+import evdeblurnerf_torch.cli
+import evdeblurnerf_torch.train.loop
+from evdeblurnerf_torch.config import parse_args
+args = parse_args(["--config", sys.argv[1], "--N_rand", "64"])
+assert args.N_rand == 64 and args.kernel_type == "RBK"
+loaded = [m for m in sys.modules if m.split(".")[0] in
+          ("jax", "jaxlib", "flax", "optax", "orbax", "evdeblurnerf_tpu")]
+assert not loaded, loaded
+print("ok")
+"""
+
+CONFIG_FILES = sorted(glob.glob(str(REPO / "configs" / "**" / "*.txt"),
+                                recursive=True))
+COMMAND_LINES = [
+    [],
+    ["--N_rand", "256", "--kernel_type", "RBK", "--use_events"],
+    ["--coarse_app_n_comp", "[8, 4, 4]", "--fine_app_n_comp", "8", "4", "4",
+     "--event_accumulate_step_range", "1", "3", "--no_ndc"],
+    ["--expname=x", "--lrate", "1e-3", "--ft_path", "none",
+     "--add_event_egm_stages", "stage0", "stage1", "--tone_mapping_type",
+     "gamma", "--use_pts0_prior", "edi"],
+    ["--compilation_cache_dir", "none", "--matmul_precision", "highest",
+     "--remat", "--grad_accum", "4", "--triplane_line_matmul", "True",
+     "--fine_cull_capacity", "0.25", "--tp_model_parallel", "2",
+     "--multihost", "--triplane_bf16", "--profile_start_step", "3"],
+]
+
+
+def _assert_same_flags(argv):
+    """The port's parse equals the JAX package's, apart from the flags in
+    PORT_DEFAULTS that neither the file nor the command line sets, and the
+    port's own ``--device``."""
+    targs = tconfig.parse_args(argv).as_dict()
+    jargs = jconfig.parse_args(argv).as_dict()
+    given = set(jconfig._parse_cli(argv))
+    if jargs.get("config"):
+        given |= set(jconfig.parse_config_file(jargs["config"]))
+    assert targs.pop("device") == "cuda"
+    assert set(targs) == set(jargs)
+    for key, want in jargs.items():
+        if key in tconfig.PORT_DEFAULTS and key not in given:
+            want = tconfig.PORT_DEFAULTS[key]
+        assert targs[key] == want, key
+
+
+@pytest.mark.parametrize("path", CONFIG_FILES,
+                         ids=[os.path.relpath(p, REPO) for p in CONFIG_FILES])
+def test_config_files_parse_as_in_the_jax_package(path):
+    assert CONFIG_FILES, "no config files found"
+    _assert_same_flags(["--config", path])
+
+
+@pytest.mark.parametrize("argv", COMMAND_LINES,
+                         ids=[f"cli{i}" for i in range(len(COMMAND_LINES))])
+def test_command_lines_parse_as_in_the_jax_package(argv):
+    _assert_same_flags(argv)
+    _assert_same_flags(["--config", CONFIG_FILES[0], *argv])
+
+
+def test_default_args_and_args_txt_match_the_jax_package(tmp_path):
+    over = dict(N_rand=32, kernel_type="RBK", fine_app_n_comp="[4, 2, 2]")
+    targs = tconfig.default_args(**over).as_dict()
+    jargs = jconfig.default_args(**over, **tconfig.PORT_DEFAULTS).as_dict()
+    assert targs.pop("device") == "cuda"
+    assert targs == jargs
+    with pytest.raises(ValueError, match="unknown flag"):
+        tconfig.default_args(no_such_flag=1)
+    with pytest.raises(ValueError, match="divisible"):
+        tconfig.parse_args(["--N_rand", "10", "--grad_accum", "4"])
+    args = tconfig.resolve_event_thresholds(tconfig.default_args(
+        events_threshold=0.3))
+    assert args.events_threshold_pos == args.events_threshold_neg == 0.3
+    tconfig.write_args_txt(args, str(tmp_path / "args.txt"))
+    assert "events_threshold_pos = 0.3" in (tmp_path / "args.txt").read_text()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (dict(fine_cull_capacity=0.25), 17), (dict(coarse_cull_capacity=0.5), 20),
+    (dict(tp_model_parallel=2), 22), (dict(multihost=True), 22),
+    (dict(triplane_bf16=True), 24), (dict(mode="nerf"), 19),
+    (dict(profile_start_step=0), 15)])
+def test_unported_settings_raise_with_their_item(flags, item):
+    """A flag that asks for what the port does not do yet parses, and the
+    loop refuses it naming its ROADMAP queue-1 item; flags that only steer
+    TPU mechanisms are accepted and ignored."""
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tconfig.check_supported(tconfig.default_args(**flags))
+    tconfig.check_supported(tconfig.default_args(
+        compilation_cache_dir="none", matmul_precision="highest", remat=True,
+        triplane_line_matmul=True))
+
+
+def test_parse_and_loop_import_load_no_jax():
+    """Importing the package, its config, CLI and train loop and parsing
+    the paper config leaves nothing of jax, flax, optax, orbax or the JAX
+    package in ``sys.modules``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _PARSE_ONLY,
+                           CONFIG_FILES[0]], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_cli_selects_the_card_and_fails_loudly_without_one(tmp_path):
+    """Without ``--device`` the entry point asks for the card; where there
+    is none it raises before it touches the data, and does not carry on
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from evdeblurnerf_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--datadir", str(tmp_path / "nowhere"), "--basedir",
+                  str(tmp_path), "--expname", "x", "--no_wandb"])
+    assert not (tmp_path / "x").exists()
+
+
 def test_no_module_imports_jax():
-    for path in PKG.rglob("*.py"):
+    """No module of the port, nor its root scripts, imports jax, flax or
+    anything of the JAX package."""
+    files = [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
+             REPO / "run_nerf_torch.py",
+             *(REPO / "tools").glob("*_torch.py")]
+    for path in files:
         text = path.read_text()
-        assert not re.search(r"^\s*(import|from)\s+(jax|flax)\b", text,
-                             re.M), path
+        assert not re.search(
+            r"^\s*(import|from)\s+(jax|flax|optax|orbax|evdeblurnerf_tpu)\b",
+            text, re.M), path
 
 
 def test_cuda_sources_exist_with_their_notes():
     names = {p.name for p in build.sources()}
     assert {"common.cuh", "lane_shuffle.cu", "fused_sample.cu",
-            "line_matmul.cu", "api.cu"} <= names
+            "line_matmul.cu", "tiled_gather.cu", "api.cu"} <= names
     for src, replaced in (("lane_shuffle.cu", "_take2d_kernel"),
                           ("lane_shuffle.cu", "_take3d_kernel"),
                           ("lane_shuffle.cu", "_cdf_kernel"),
                           ("fused_sample.cu", "_fwd_kernel"),
                           ("fused_sample.cu", "_bwd_kernel"),
-                          ("line_matmul.cu", "_grad_kernel")):
+                          ("line_matmul.cu", "_grad_kernel"),
+                          ("tiled_gather.cu", "tiled_gather.py::_kernel")):
         text = (build.CSRC_DIR / src).read_text()
         assert replaced in text and "Bound:" in text
     for sig in build.SIGNATURES:
@@ -149,7 +282,8 @@ def _tiny_tables():
 
 @pytest.mark.parametrize("op", ["permute_lanes", "permute_lanes_3d",
                                 "cdf_take", "triplane_features",
-                                "triplane_features_bwd", "line_grad"])
+                                "triplane_features_bwd", "line_grad",
+                                "tiled_plane_gather"])
 def test_kernel_path_raises_without_fallback(no_nvcc, monkeypatch, op):
     """When a wrapper takes the kernel path and the kernel cannot be
     built, the error reaches the caller: no wrapper catches it and carries
@@ -167,6 +301,11 @@ def test_kernel_path_raises_without_fallback(no_nvcc, monkeypatch, op):
             lane_shuffle.cdf_take(x, x, idx, idx)
         elif op == "line_grad":
             line_matmul.line_grad(idx[0], x.T.contiguous(), 8)
+        elif op == "tiled_plane_gather":
+            f = torch.rand(tiled_gather.GROUP) * 6
+            o = torch.zeros(1, dtype=torch.int32)
+            tiled_gather.tiled_plane_gather(torch.randn(8, 8, 4), f, f, o, o,
+                                            TH=8, TW=8)
         else:
             pp, pl, sizes = _tiny_tables()
             xyz = torch.rand(6, 3) * 2 - 1

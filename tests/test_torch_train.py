@@ -12,6 +12,7 @@ states another.
 """
 
 import dataclasses
+import os
 import re
 
 import jax
@@ -401,20 +402,29 @@ def test_adam_and_lr_rule_match_jax():
 
 
 def test_chip_smoke_train_flags_are_the_paper_config():
-    """chip_smoke.py keeps the paper configuration's flags as a table (it
-    loads nothing of the JAX package, whose flag table the parser reads):
-    every entry equals the parse of the config file with the two
-    overrides, and grad_accum comes from PORT_DEFAULTS."""
+    """chip_smoke.py parses the paper configuration through the port's own
+    parser: what ``chip_smoke.train_args()`` returns equals the JAX
+    package's parse of the same file with the two overrides, flag by flag,
+    apart from PORT_DEFAULTS (grad_accum among them) and the port's own
+    ``device``."""
     import chip_smoke
 
     argv = ["--config", chip_smoke.PAPER_CONFIG]
     for k, v in chip_smoke.PAPER_OVERRIDES.items():
         argv += [f"--{k}", str(v)]
-    args = jconfig.resolve_event_thresholds(tconfig.parse_args(argv))
-    for k, v in chip_smoke.TRAIN_FLAGS.items():
-        assert getattr(args, k) == v, k
+    want = jconfig.resolve_event_thresholds(
+        jconfig.parse_args(argv)).as_dict()
+    got = chip_smoke.train_args().as_dict()
+    assert got.pop("device") == "cuda"
+    assert os.path.samefile(got.pop("config"), want.pop("config"))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k] == tconfig.PORT_DEFAULTS.get(k, v), k
+    assert got["kernel_start_iter"] == 0 and got["kernel_ptnum"] == 10
+    assert got["events_threshold_pos"] == got["events_threshold"] == 0.2
     assert chip_smoke.train_args().grad_accum == \
         tconfig.PORT_DEFAULTS["grad_accum"]
+    assert chip_smoke.train_args(perturb=0.0).perturb == 0.0
 
 
 def test_port_defaults_pin_grad_accum():
