@@ -26,11 +26,20 @@ per kernel, phase 8 a few):
    equal to the plain version's (the bound is 1e-6 of the largest
    magnitude), spilled rows exactly zero, the fallback within 1e-5 of a
    direct bilinear gather, NaN when the spills pass the capacity. Times
-   are CUDA-event means after warm-up, taken in the order plain, kernel,
-   kernel, plain; beside them the time of the one PyTorch call that
-   computes the same function, where there is one (``torch.gather``,
+   (``ms``, ``plain_ms``, ``library_ms``) are CUDA-event means after
+   warm-up over calls queued back to back, taken in the order plain,
+   kernel, kernel, plain; beside them the time of the one PyTorch call
+   that computes the same function, where there is one (``torch.gather``,
    ``index_add_``, ``F.grid_sample``), and the least time the card could
-   take (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32);
+   take (bytes over 3.35 TB/s or operations over 67 TFLOP/s f32). A kernel
+   of a few microseconds (K1, K3) finishes before the host has queued the
+   next call, so its back-to-back time follows the host; for these, and
+   for their yardsticks, two more numbers: ``device_ms``, the kernel's own
+   duration on the device (the sum of its CUPTI durations from
+   ``torch.profiler`` over 50 calls, its tensors warm in L2),
+   ``device_cold_ms``, the same after an L2 flush before every call, and
+   ``host_us_per_call``, the wall time of the Python call with no
+   synchronise (``tools/timing_torch.py``);
 4. the serving path at the paper width (the model of ``bench.py``: 64+64
    samples, 16.8M/134M-voxel grids, app_n_comp (64, 16, 16), fine width
    256): seeded random weights saved as a reference ``*.tar``, loaded
@@ -76,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import glob
 import importlib.util
 import json
@@ -152,19 +162,29 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    import torch
+    """tools/timing_torch.py::cuda_ms."""
+    return _load_tool("timing_torch").cuda_ms(fn, iters, warmup)
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+
+def device_and_host(fn):
+    """tools/timing_torch.py::device_and_host: (device ms with a warm L2,
+    device ms after an L2 flush, host microseconds per call)."""
+    try:
+        return _load_tool("timing_torch").device_and_host(fn)
+    except RuntimeError as e:
+        raise Failed(str(e)) from e
+
+
+def small_kernel_times(entry, suffix="", **fns):
+    """Adds ``device_ms``, ``device_cold_ms`` and ``host_us_per_call``
+    (:func:`device_and_host`) to a kernel's record: plainly named for
+    ``kernel=``, with the prefix ``library_`` or ``plain_`` for those
+    yardsticks."""
+    for role, fn in fns.items():
+        prefix = "" if role == "kernel" else f"{role}_"
+        (entry[f"{prefix}device_ms{suffix}"],
+         entry[f"{prefix}device_cold_ms{suffix}"],
+         entry[f"{prefix}host_us_per_call{suffix}"]) = device_and_host(fn)
 
 
 def ab_ms(plain, kernel):
@@ -274,38 +294,55 @@ def phase_kernels(dev):
     results = {}
     take = lane_shuffle.permute_lanes_plain
 
-    # K1, forward at the eval chunk and forward + backward at the paper
-    # step's image render: sigma into depth order, weights back
-    for R, S in ((CHUNK, 128), (TRAIN_RAYS, TRAIN_SAMPLES)):
+    # K1, forward and backward: at the eval chunk (keys with the suffix
+    # "_eval") and at the paper step's image render, where sigma goes into
+    # depth order and the weights come back. Both are a few microseconds on
+    # the device, so device_ms and host_us_per_call stand beside the
+    # back-to-back time
+    k1 = {name: _kernel_entry(
+        "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:137", 0.0,
+        0, 0) for name in ("permute_lanes", "permute_lanes_bwd")}
+
+    def k1_bytes(R, S):
+        # x and the index read, the output written: 3 arrays of R * S words
+        return 3 * 4 * R * S
+
+    for (R, S), suffix in (((CHUNK, 128), "_eval"),
+                           ((TRAIN_RAYS, TRAIN_SAMPLES), "")):
         x = torch_randn(dev, g, R, S)
         _, perm, inv = lane_shuffle.sort_with_perm(
             torch.rand(R, S, generator=g, device=dev))
         out = lane_shuffle.permute_lanes(x, perm, inv)
         check(torch.equal(out, take(x, perm)),
               f"K1 permute_lanes [{R}, {S}] differs from its plain version")
-    ms, plain_ms = ab_ms(lambda: take(x, perm),
-                         lambda: lane_shuffle.permute_lanes(x, perm, inv))
-    # x and the index read, the output written: 3 arrays of R * S words
-    k1_bytes = 3 * 4 * R * S
-    perm64 = perm.long()
-    results["permute_lanes"] = _kernel_entry(
-        "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:137", 0.0,
-        ms, plain_ms, k1_bytes,
-        library_ms=cuda_ms(lambda: torch.gather(x, -1, perm64)))
-    xg = x.clone().requires_grad_()
-    cot = torch_randn(dev, g, R, S)
-    lane_shuffle.permute_lanes(xg, perm, inv).backward(cot)
-    check(torch.equal(xg.grad, take(cot, inv)),
-          "K1 backward differs from the plain gather by the inverse")
-    # the backward's launch: the same kernel by the inverse permutation
-    ms, plain_ms = ab_ms(lambda: take(cot, inv),
-                         lambda: lane_shuffle._take(cot, inv, True))
-    inv64 = inv.long()
-    results["permute_lanes_bwd"] = _kernel_entry(
-        "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:137", 0.0,
-        ms, plain_ms, k1_bytes,
-        library_ms=cuda_ms(lambda: torch.gather(cot, -1, inv64)))
-    del x, xg, cot
+        xg = x.clone().requires_grad_()
+        cot = torch_randn(dev, g, R, S)
+        lane_shuffle.permute_lanes(xg, perm, inv).backward(cot)
+        check(torch.equal(xg.grad, take(cot, inv)),
+              f"K1 backward [{R}, {S}] differs from the plain gather by the "
+              "inverse")
+        perm64, inv64 = perm.long(), inv.long()
+        # the backward's launch: the same kernel by the inverse permutation
+        for name, fns in (
+                ("permute_lanes", dict(
+                    plain=lambda: take(x, perm),
+                    kernel=lambda: lane_shuffle.permute_lanes(x, perm, inv),
+                    library=lambda: torch.gather(x, -1, perm64))),
+                ("permute_lanes_bwd", dict(
+                    plain=lambda: take(cot, inv),
+                    kernel=lambda: lane_shuffle._take(cot, inv, True),
+                    library=lambda: torch.gather(cot, -1, inv64)))):
+            e = k1[name]
+            e[f"ms{suffix}"], e[f"plain_ms{suffix}"] = ab_ms(fns["plain"],
+                                                             fns["kernel"])
+            e[f"library_ms{suffix}"] = cuda_ms(fns["library"])
+            small_kernel_times(e, suffix, **fns)
+            e[f"bound_ms{suffix}"] = 1e3 * k1_bytes(R, S) / HBM_BYTES_PER_S
+            e[f"shape{suffix}"] = [R, S]
+        del x, xg, cot, out
+    for e in k1.values():
+        _set_bound(e, k1_bytes(TRAIN_RAYS, TRAIN_SAMPLES), 0)
+    results.update(k1)
 
     # K2: AWP's per-sample features [R, C, S] into depth order, and back
     C = 128
@@ -362,6 +399,10 @@ def phase_kernels(dev):
         plain_ms,
         # cdf and bins [R, M], two indices and four outputs [R, N]
         4 * R * (2 * M + 6 * N))
+    small_kernel_times(
+        results["cdf_take"],
+        kernel=lambda: lane_shuffle.cdf_take(cdf, bins, below, above),
+        plain=lambda: lane_shuffle.cdf_take_plain(cdf, bins, below, above))
 
     # K4 forward and K5 backward on coarse- and fine-size tables; points
     # reach past [-1, 1] so the zeros-padding and clip rules run, as they
@@ -486,7 +527,28 @@ def phase_kernels(dev):
                  else "")
               + f"; library call {lib}; bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops)")
+        for suffix in ("", "_eval"):
+            if f"device_ms{suffix}" in r:
+                print(f"[3 kernel] {name}{suffix}: " + _small_line(r, suffix))
     return results
+
+
+def _small_line(r, suffix):
+    """The device-time reading of one microsecond-scale kernel record."""
+    parts = []
+    if f"shape{suffix}" in r:
+        parts.append(f"shape {r[f'shape{suffix}']}, back to back "
+                     f"{r[f'ms{suffix}']:.4f} ms vs library "
+                     f"{r[f'library_ms{suffix}']:.4f} ms, bound "
+                     f"{r[f'bound_ms{suffix}']:.4f} ms")
+    for role in ("kernel", "library", "plain"):
+        prefix = "" if role == "kernel" else f"{role}_"
+        if f"{prefix}device_ms{suffix}" in r:
+            parts.append(
+                f"{role} device {r[f'{prefix}device_ms{suffix}']:.4f} ms "
+                f"(L2 flushed before each call: "
+                f"{r[f'{prefix}device_cold_ms{suffix}']:.4f} ms), host {r[f'{prefix}host_us_per_call{suffix}']:.1f} us/call")
+    return "; ".join(parts)
 
 
 K7_TILES = ((32, 32), (64, 64), (48, 128))
@@ -494,8 +556,9 @@ K7_REL_TOL = 1e-6        # rows inside their tile, of the largest magnitude
 K7_FALLBACK_TOL = 1e-5   # the patched output against a direct gather
 
 
+@functools.cache
 def _load_tool(name):
-    """``tools/<name>.py`` as a module."""
+    """``tools/<name>.py`` as a module, loaded once."""
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(REPO, "tools", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)

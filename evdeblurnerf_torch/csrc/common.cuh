@@ -13,10 +13,15 @@
 #define EVDN_API extern "C" __attribute__((visibility("default")))
 
 // The library links its own CUDA runtime, whose current device is not
-// PyTorch's: select the tensors' device before every launch.
+// PyTorch's: make the tensors' device current before a launch. Asking
+// which device is current costs a fraction of setting it, so the device
+// is set only when another one is current.
 #define EVDN_SET_DEVICE(device)                                  \
   do {                                                           \
-    cudaError_t err_ = cudaSetDevice(device);                    \
+    int current_ = -1;                                           \
+    cudaError_t err_ = cudaGetDevice(&current_);                 \
+    if (err_ == cudaSuccess && current_ != (device))             \
+      err_ = cudaSetDevice(device);                              \
     if (err_ != cudaSuccess) return static_cast<int>(err_);      \
   } while (0)
 

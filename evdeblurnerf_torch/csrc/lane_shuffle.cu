@@ -6,13 +6,20 @@
 //   the weights back into evaluation order (models/voxnerf.py:287,291).
 //   Its gradient is the same kernel launched with the inverse permutation.
 //   Bound: device-memory bytes. At the eval shape [32768, 128] it reads
-//   16 MiB of x and 16 MiB of indices and writes 16 MiB, with 2 flops of
-//   address arithmetic per element. Design: a block stages whole rows of x
-//   in shared memory with coalesced loads, then every thread gathers from
-//   shared memory and writes its output coalesced, so the random pick
-//   never touches device memory. The TPU kernel's 128-lane limit does not
-//   exist here: rows wider than the shared-memory budget are gathered
-//   straight from device memory (through L1) instead.
+//   16 MiB of x and 16 MiB of int32 indices and writes 16 MiB, 50 MB in
+//   all (15.7 MB at the paper step's [10240, 128]); there is no
+//   arithmetic beyond addresses. Design: fill the card, 16 bytes a
+//   thread, no barrier. A thread takes four consecutive outputs of one
+//   row: it reads their four indices as one int4, picks the four values
+//   from the row of x through the read-only path (a row of 128 floats is
+//   four cache lines, which L1 serves as well as shared memory would; the
+//   row is not staged) and writes one float4. At S2 = 128 that is one
+//   warp a row, 10,240 rows are 1,280 blocks of 256 threads, every SM
+//   holds several, and index load and store are coalesced 512-byte rows.
+//   Narrower rows share a warp; any S works, since nothing is staged. An
+//   S2 that is no multiple of 4, or a pointer that is not 16-byte
+//   aligned, takes the scalar kernel, one thread an element. The TPU
+//   kernel's 128-lane limit does not exist here.
 //
 // K2 permute_lanes_3d: out[r, c, j] = x[r, c, idx[r, j]], one pick per ray
 //   shared by all C channels.
@@ -41,40 +48,51 @@
 //
 // All three are exact (a gather copies values). An index outside
 // [0, width) writes NaN instead of reading out of bounds.
-#include <algorithm>
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-// 48 KiB of floats: the shared memory a block may use without opting in.
+// 48 KiB of words: the shared memory a block may use without opting in.
 constexpr int kStageFloats = 12288;
-constexpr int kMaxRowsPerBlock = 64;
 
-template <bool kStage>
-__global__ void permute_lanes_kernel(const float* __restrict__ x,
-                                     const int32_t* __restrict__ idx,
-                                     float* __restrict__ out, int64_t rows,
-                                     int S, int S2, int rows_per_block) {
-  extern __shared__ float stage[];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t left = rows - row0;
-  const int nrows =
-      left < rows_per_block ? static_cast<int>(left) : rows_per_block;
-  const float* xb = x + row0 * S;
-  if (kStage) {
-    for (int i = threadIdx.x; i < nrows * S; i += blockDim.x) stage[i] = xb[i];
-    __syncthreads();
-  }
-  const float* src = kStage ? stage : xb;
-  const int32_t* ib = idx + row0 * S2;
-  float* ob = out + row0 * S2;
-  for (int i = threadIdx.x; i < nrows * S2; i += blockDim.x) {
-    const int r = i / S2;
-    const int k = ib[i];
-    ob[i] = (k >= 0 && k < S) ? src[static_cast<int64_t>(r) * S + k] : NAN;
-  }
+// i / per_row, by 32-bit division where the whole launch fits it.
+__device__ __forceinline__ int64_t row_of(int64_t i, int64_t total,
+                                          int per_row) {
+  return total <= INT32_MAX ? static_cast<int>(i) / per_row : i / per_row;
+}
+
+__device__ __forceinline__ float pick(const float* __restrict__ row, int k,
+                                      int S) {
+  return (k >= 0 && k < S) ? __ldg(row + k) : NAN;
+}
+
+// One thread per four outputs: quads = S2 / 4 pieces a row.
+__global__ void __launch_bounds__(evdn::kThreads)
+permute_lanes_vec_kernel(const float* __restrict__ x,
+                         const int4* __restrict__ idx4,
+                         float4* __restrict__ out4, int64_t total, int S,
+                         int quads) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * evdn::kThreads + threadIdx.x;
+  if (i >= total) return;
+  const float* row = x + row_of(i, total, quads) * S;
+  const int4 k = __ldg(idx4 + i);
+  out4[i] = make_float4(pick(row, k.x, S), pick(row, k.y, S),
+                        pick(row, k.z, S), pick(row, k.w, S));
+}
+
+// One thread per output.
+__global__ void __launch_bounds__(evdn::kThreads)
+permute_lanes_scalar_kernel(const float* __restrict__ x,
+                            const int32_t* __restrict__ idx,
+                            float* __restrict__ out, int64_t total, int S,
+                            int S2) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * evdn::kThreads + threadIdx.x;
+  if (i >= total) return;
+  out[i] = pick(x + row_of(i, total, S2) * S, __ldg(idx + i), S);
 }
 
 template <bool kStage>
@@ -132,17 +150,20 @@ EVDN_API int evdn_permute_lanes(const float* x, const int32_t* idx,
                                 int device, cudaStream_t stream) {
   EVDN_SET_DEVICE(device);
   if (rows <= 0 || S2 <= 0) return static_cast<int>(cudaGetLastError());
-  if (S <= kStageFloats) {
-    const int rpb =
-        std::max(1, std::min(kMaxRowsPerBlock, kStageFloats / std::max(S, 1)));
-    const size_t smem = static_cast<size_t>(rpb) * S * sizeof(float);
-    permute_lanes_kernel<true>
-        <<<evdn::blocks_for(rows, rpb), evdn::kThreads, smem, stream>>>(
-            x, idx, out, rows, S, S2, rpb);
+  const bool vec = S2 % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    const int64_t total = rows * (S2 / 4);
+    permute_lanes_vec_kernel<<<evdn::blocks_for(total, evdn::kThreads),
+                               evdn::kThreads, 0, stream>>>(
+        x, reinterpret_cast<const int4*>(idx),
+        reinterpret_cast<float4*>(out), total, S, S2 / 4);
   } else {
-    permute_lanes_kernel<false>
-        <<<evdn::blocks_for(rows, 1), evdn::kThreads, 0, stream>>>(
-            x, idx, out, rows, S, S2, 1);
+    const int64_t total = rows * S2;
+    permute_lanes_scalar_kernel<<<evdn::blocks_for(total, evdn::kThreads),
+                                  evdn::kThreads, 0, stream>>>(
+        x, idx, out, total, S, S2);
   }
   return static_cast<int>(cudaGetLastError());
 }

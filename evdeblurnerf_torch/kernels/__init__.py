@@ -72,12 +72,16 @@ def launch(name: str, device: torch.device, *args,
     ``args`` are the C arguments before the trailing (device index,
     stream) pair: tensors' ``data_ptr()`` for pointers, Python ints for
     sizes. Does not synchronise."""
-    lib = build.load()
+    fn = build.ENTRY.get(name)
+    if fn is None:      # the first launch of this process builds and loads
+        build.load()
+        fn = build.ENTRY[name]
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, f"evdn_{name}")(*args, device.index, stream)
+    rc = fn(*args, device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} "
-                           f"({lib.evdn_error_string(rc).decode()})")
+        raise RuntimeError(
+            f"{name}: CUDA error {rc} "
+            f"({build.load().evdn_error_string(rc).decode()})")
     LAUNCHES[counter or name] += 1
 
 

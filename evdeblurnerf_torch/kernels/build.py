@@ -59,6 +59,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+# kernel name -> its C entry point ``evdn_<name>`` in the loaded library;
+# filled by load(), read by kernels.launch without a lock
+ENTRY = {}
 
 
 def sources():
@@ -135,8 +138,12 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call in this process)."""
+    """The loaded kernel library (built on first call in this process).
+    Once it is loaded no lock is taken; :data:`ENTRY` then holds every
+    entry point by its kernel's name."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -144,6 +151,7 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+                ENTRY[name[len("evdn_"):]] = fn
             lib.evdn_error_string.argtypes = [ctypes.c_int]
             lib.evdn_error_string.restype = ctypes.c_char_p
             _lib = lib

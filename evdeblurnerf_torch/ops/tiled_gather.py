@@ -4,13 +4,15 @@ through kernel K7.
 Counterpart of ``evdeblurnerf_tpu/ops/tiled_gather.py``. Instead of four
 table-row reads per point, points are taken in groups of ``GROUP = 128``
 that lie close together on the plane (the rays are Morton-sorted once per
-step), and each group reads one ``TH x TW`` tile of a channels-last plane:
+step), and each group shares one ``TH x TW`` tile of a channels-last plane:
 
 1. :func:`group_origins` centres each group's tile on the group's median
    texel and reports the points whose 2x2 footprint leaves the tile;
 2. :func:`tiled_plane_gather` samples every point from its group's tile:
    on CUDA tensors the hand-written kernel of ``csrc/tiled_gather.cu``,
-   which stages the tile in shared memory, on CPU tensors the plain twin
+   which reads each point's four texel rows straight through the caches
+   (on this card the tile is the spill mask only, and any tile that fits
+   the plane runs), on CPU tensors the plain twin
    :func:`tiled_plane_gather_plain`; spilled rows come out zero;
 3. :func:`tiled_plane_gather_with_fallback` patches the spilled rows with
    a direct four-corner gather, up to a fixed capacity; more spills than
@@ -142,7 +144,7 @@ def tiled_plane_gather(plane_hwc: torch.Tensor, fu: torch.Tensor,
     kernels.check_tensor("tiled_plane_gather oy", oy, torch.int32, 1)
     kernels.check_tensor("tiled_plane_gather ox", ox, torch.int32, 1)
     if C % 4:
-        raise ValueError(f"tiled_plane_gather: C={C}; the kernel stages "
+        raise ValueError(f"tiled_plane_gather: C={C}; the kernel moves "
                          "16-byte pieces and takes multiples of 4 channels")
     out = torch.empty(N, C, dtype=torch.float32, device=plane_hwc.device)
     kernels.launch("tiled_plane_gather", plane_hwc.device,

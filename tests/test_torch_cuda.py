@@ -39,7 +39,9 @@ def dev():
 
 
 @pytest.mark.parametrize("rows,S,S2", [(32768, 128, 128), (1000, 8, 8),
-                                       (3, 128, 64), (7, 20000, 5)])
+                                       (3, 128, 64), (7, 20000, 5),
+                                       (10240, 128, 128), (33, 6, 6),
+                                       (5, 10, 10)])
 def test_permute_lanes_kernel_is_exact(dev, rows, S, S2):
     g = torch.Generator(device=dev).manual_seed(rows)
     x = torch.randn(rows, S, generator=g, device=dev)
@@ -85,6 +87,27 @@ def test_permute_lanes_bad_index_is_nan(dev):
     got = lane_shuffle.permute_lanes(x, idx, idx)
     assert got[0, 0] == x[0, 0] and got[1, 1] == x[1, 7]
     assert bool(torch.isnan(got[0, 1])) and bool(torch.isnan(got[1, 0]))
+
+
+def test_permute_lanes_bad_index_is_nan_on_the_vector_path(dev):
+    """Rows of 128 indices are read four at a time: an index outside
+    [0, S) in any of the four places gives NaN there and nowhere else."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(6, 128, generator=g, device=dev)
+    idx = torch.randint(0, 128, (6, 128), generator=g, device=dev,
+                        dtype=torch.int32)
+    bad = [(0, 0, -1), (1, 5, 128), (2, 126, 1 << 30), (3, 127, -(1 << 31)),
+           (5, 64, 128), (5, 67, -5)]
+    for r, j, k in bad:
+        idx[r, j] = k
+    got = lane_shuffle.permute_lanes(x, idx, idx)
+    want_nan = torch.zeros(6, 128, dtype=torch.bool, device=dev)
+    for r, j, _ in bad:
+        want_nan[r, j] = True
+    assert torch.equal(torch.isnan(got), want_nan)
+    keep = ~want_nan
+    want = torch.gather(x, -1, idx.clamp(0, 127).long())
+    assert torch.equal(got[keep], want[keep])
 
 
 def test_wrappers_check_their_inputs(dev):
@@ -199,11 +222,12 @@ def _clustered(dev, g, groups, H, W, spread, outliers):
 
 
 @pytest.mark.parametrize("H,W,C,TH,TW,groups", [
-    (512, 512, 64, 64, 64, 512),      # the bench's plane, 128 KiB tile chunks
-    (512, 512, 64, 48, 128, 64),      # 192 KiB: the largest tile
+    (512, 512, 64, 64, 64, 512),      # the bench's plane and default tile
+    (512, 512, 64, 48, 128, 64),      # the bench's largest tile
     (96, 80, 16, 32, 32, 5), (64, 64, 8, 8, 8, 4),
-    (40, 33, 12, 16, 9, 3),           # C a multiple of 4 only: 16-byte chunks
-    (33, 40, 4, 33, 40, 2)])          # the tile is the whole plane
+    (40, 33, 12, 16, 9, 3),           # 3 threads a point, a non-square tile
+    (33, 40, 4, 33, 40, 2),           # the tile is the whole plane
+    (128, 128, 8, 128, 128, 4)])      # 512 KiB a tile: nothing is staged
 def test_tiled_gather_kernel_is_exact(dev, H, W, C, TH, TW, groups):
     g = torch.Generator(device=dev).manual_seed(H * W + C)
     plane = torch.randn(H, W, C, generator=g, device=dev)
@@ -268,13 +292,29 @@ def test_tiled_gather_poisons_and_checks_its_inputs(dev):
     with pytest.raises(NotImplementedError, match="forward-only"):
         tiled_gather.tiled_plane_gather(plane.clone().requires_grad_(), fu,
                                         fv, oy, ox, 8, 8)
-    # a tile past the card's 227 KiB of shared memory is refused by the
-    # launch, and the refusal reaches the caller
-    big = torch.randn(128, 128, 8, generator=g, device=dev)
-    o = torch.zeros(4, dtype=torch.int32, device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tiled_gather.tiled_plane_gather(big, fu, fv, o, o, 128, 128)
     assert kernels.LAUNCHES["tiled_plane_gather"] == 0
+
+
+def test_tiled_gather_group_that_spills_whole(dev):
+    """A group none of whose points lies in its tile writes 128 rows of
+    zeros, and its neighbours are untouched by it."""
+    H, W, C, TH, TW = 96, 80, 12, 16, 9
+    g = torch.Generator(device=dev).manual_seed(5)
+    plane = torch.randn(H, W, C, generator=g, device=dev)
+    fu, fv = _clustered(dev, g, 3, H, W, spread=1.0, outliers=0.0)
+    oy, ox, ok = tiled_gather.group_origins(fu, fv, H, W, TH, TW)
+    # the middle group's tile goes to the far corner from its points
+    mid = slice(tiled_gather.GROUP, 2 * tiled_gather.GROUP)
+    oy[1] = 0 if float(fv[mid].mean()) > H / 2 else H - TH
+    ox[1] = 0 if float(fu[mid].mean()) > W / 2 else W - TW
+    got = tiled_gather.tiled_plane_gather(plane, fu, fv, oy, ox, TH, TW)
+    want = tiled_gather.tiled_plane_gather_plain(plane, fu, fv, oy, ox, TH,
+                                                 TW)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[mid] == 0).all())
+    assert bool((got[:tiled_gather.GROUP][ok[:tiled_gather.GROUP]] != 0)
+                .any())
 
 
 def _grad_case(dev, g, comps, grid, n):

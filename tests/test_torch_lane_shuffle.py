@@ -18,7 +18,8 @@ from evdeblurnerf_tpu.ops import lane_shuffle as jls
 
 
 @pytest.mark.parametrize("rows,S,S2", [(37, 8, 8), (1030, 128, 128),
-                                       (300, 128, 64), (5, 8, 3)])
+                                       (300, 128, 64), (5, 8, 3),
+                                       (3, 128, 64), (5, 10, 10)])
 def test_permute_lanes_matches_pallas_k1(rows, S, S2):
     rng = np.random.default_rng(rows + S)
     x = rng.normal(size=(rows, S)).astype(np.float32)

@@ -1,8 +1,9 @@
 """K7 of the port on the CPU: the plain twin of ``tiled_plane_gather``,
 ``group_origins``, ``morton_code_2d`` and the fallback against the JAX
 functions (the Pallas kernel in interpret mode) on the three cases of
-tests/test_tiled_gather.py, and the port's point stream against
-tests/locality_geometry.py.
+tests/test_tiled_gather.py and three of the port's own (groups that are
+ray segments, 12 channels under a 16 x 9 tile, a group that spills whole),
+and the port's point stream against tests/locality_geometry.py.
 
 Tolerances: 1e-5 on sampled values, as tests/test_tiled_gather.py holds
 the JAX kernel to its reference (the one-hot matmul and the four-corner
@@ -28,14 +29,41 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _case(name):
-    """(plane, fu, fv, TH, TW, capacity) of one case of
-    tests/test_tiled_gather.py:38-82."""
+    """(plane, fu, fv, TH, TW, capacity) of one case: the three of
+    tests/test_tiled_gather.py:38-82 and the port's three."""
     if name == "no_spills":
         rng = np.random.default_rng(0)
         H, W, C = 96, 80, 16
         plane = rng.normal(size=(H, W, C)).astype(np.float32)
         fu, fv = _clustered_points(rng, n_groups=5, H=H, W=W, spread=4.0)
         return plane, fu, fv, 32, 32, 0.125
+    if name == "ray_segments":
+        # 16 rays of 128 samples: every group is a line segment on the
+        # plane, the geometry of the bench's point stream; a 6 x 6 tile
+        # cuts the ends off some segments (7% of the points spill)
+        rng = np.random.default_rng(4)
+        H, W, C = 64, 64, 8
+        plane = rng.normal(size=(H, W, C)).astype(np.float32)
+        xyz = locality.step_points_xyz(n_rand=8, ptnum=2, S=128)
+        fu = (xyz[:, 0] * (W - 1.001)).astype(np.float32)
+        fv = (xyz[:, 1] * (H - 1.001)).astype(np.float32)
+        return plane, fu, fv, 6, 6, 0.5
+    if name == "c12_tile_16x9":
+        rng = np.random.default_rng(5)
+        H, W, C = 40, 33, 12
+        plane = rng.normal(size=(H, W, C)).astype(np.float32)
+        fu, fv = _clustered_points(rng, n_groups=3, H=H, W=W, spread=1.5)
+        return plane, fu, fv, 16, 9, 0.5
+    if name == "whole_group_spills":
+        # group 1 is two far clusters of 64: the median lies between them,
+        # and so does the tile, which then holds none of the 128 points
+        rng = np.random.default_rng(6)
+        H, W, C = 64, 64, 8
+        plane = rng.normal(size=(H, W, C)).astype(np.float32)
+        fu, fv = _clustered_points(rng, n_groups=3, H=H, W=W, spread=1.0)
+        fu[tg.GROUP:tg.GROUP + 64] = rng.uniform(3, 8, 64)
+        fu[tg.GROUP + 64:2 * tg.GROUP] = rng.uniform(52, 58, 64)
+        return plane, fu, fv, 16, 16, 0.5
     if name == "spills":
         rng = np.random.default_rng(1)
         H, W, C = 96, 80, 8
@@ -54,7 +82,8 @@ def _case(name):
     return plane, fu, fv, 8, 8, 0.01
 
 
-CASES = ("no_spills", "spills", "over_capacity")
+CASES = ("no_spills", "spills", "over_capacity", "ray_segments",
+         "c12_tile_16x9", "whole_group_spills")
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -71,8 +100,12 @@ def test_group_origins_match_jax_exactly(name):
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
     if name == "no_spills":
         assert bool(ok.all())
+    elif name == "whole_group_spills":
+        assert not bool(ok[tg.GROUP:2 * tg.GROUP].any())
+        assert bool(ok[:tg.GROUP].any()) and bool(ok[2 * tg.GROUP:].any())
     else:
         assert not bool(ok.all())
+    assert bool(ok.any())
 
 
 @pytest.mark.parametrize("name", CASES)
