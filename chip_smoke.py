@@ -17,9 +17,16 @@ per kernel, phase 8 a few):
    bitwise equal; K4 ``triplane_features`` at N=2,097,152 on coarse- and
    fine-size packed tables within 1e-6 of the plain output's largest
    magnitude (both round at the same places); K5 ``triplane_features_bwd``
-   (with K6 for the line tables) at the same N, every gradient within 1e-5
-   of its largest magnitude against autograd of the plain sampler, and K6
-   ``line_grad`` at the fine line table within 1e-5 (atomics add in
+   (with K6 for the line tables) every gradient within 1e-5 of its largest
+   magnitude against autograd of the plain sampler, at that N, at the
+   step's own launch sizes (1,310,720 points on the fine tables, 655,360
+   on the coarse) and on the ray-ordered stream of one step
+   (``utils/locality.py::step_points_xyz``), and K6 ``line_grad`` alone on
+   the fine and coarse line tables with uniform and ray-ordered row
+   indices within 1e-5, and on its path: at the paper's tables K5's fused
+   kernel sums the line gradients in shared memory, so K6 is driven by a
+   sampler backward over a line of 1024 rows, which that kernel cannot
+   hold, with the launches counted there (atomics add in
    another order, run to run); K7 ``tiled_plane_gather`` at its bench's
    shapes (a 512 x 512 x 64 plane, the 1,310,720 sample points of one
    step, tiles 32x32, 64x64 and 48x128): rows inside their tile bitwise
@@ -39,7 +46,13 @@ per kernel, phase 8 a few):
    ``torch.profiler`` over 50 calls, its tensors warm in L2),
    ``device_cold_ms``, the same after an L2 flush before every call, and
    ``host_us_per_call``, the wall time of the Python call with no
-   synchronise (``tools/timing_torch.py``);
+   synchronise (``tools/timing_torch.py``). K5's ``ms`` is its wrapper's,
+   which launches K5's kernel, PyTorch glue and, for tables too large for
+   the fused kernel, one K6 kernel: for every
+   K5 and K6 case the kernel's own ``device_ms`` (CUPTI durations summed
+   by kernel name) stands beside the wrapper's ``ms``, the bound at that
+   shape and, for K6, ``index_add_``'s time
+   (``tools/bench_kernel_variants_torch.py`` holds the cases and timers);
 4. the serving path at the paper width (the model of ``bench.py``: 64+64
    samples, 16.8M/134M-voxel grids, app_n_comp (64, 16, 16), fine width
    256): seeded random weights saved as a reference ``*.tar``, loaded
@@ -56,7 +69,7 @@ per kernel, phase 8 a few):
    step 0, seeded random weights, and one synthetic batch of 1024 x 10 +
    2 x 4096 = 18,432 rays; 2 warm-up and 5 timed steps through
    ``train/step.py``; every loss finite, every parameter group updated,
-   every kernel launched forward and backward;
+   every kernel of the step launched forward and backward;
 7. card against CPU, one training step at the same width on 64 x 10 +
    2 x 64 rays with perturb 0 and no sigma noise: the loss and every
    parameter's gradient through the kernels on the card and through the
@@ -134,8 +147,10 @@ F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
 NUM_IMAGES = 30         # bench.py's scene
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 AB_RAYS, AB_EV_RAYS = 64, 64
-K4_POINTS = 2_097_152
 K4_REL_TOL = 1e-6
+# K6's path: a sampler backward whose 64-component line (grid z) is too
+# tall for K5 to reduce in shared memory (1024 x 68 floats = 272 KiB)
+K6_PATH_GRID, K6_PATH_POINTS = (40, 36, 1024), 262_144
 GRAD_REL_TOL = 1e-5     # K5 and K6: atomics sum in another order
 TRAIN_RAYS, TRAIN_SAMPLES = 10240, 128   # the image render's fine pass
 # phase 7: the card's training-step gradients against the CPU's; a
@@ -169,8 +184,13 @@ def cuda_ms(fn, iters=20, warmup=3):
 def device_and_host(fn):
     """tools/timing_torch.py::device_and_host: (device ms with a warm L2,
     device ms after an L2 flush, host microseconds per call)."""
+    return _timed(_load_tool("timing_torch").device_and_host, fn)
+
+
+def _timed(timer, *args):
+    """``timer(*args)``; a trace that stayed empty fails the run by name."""
     try:
-        return _load_tool("timing_torch").device_and_host(fn)
+        return timer(*args)
     except RuntimeError as e:
         raise Failed(str(e)) from e
 
@@ -260,21 +280,6 @@ def _touched_bytes(grid, n_points, corners):
     return 4 * min(grid.numel(), n_points * corners * grid.shape[0])
 
 
-def _paper_grids(dev, g, n_vox):
-    """Random f32 grids ([C, H, W] planes, [C, D] lines) at a paper grid."""
-    from evdeblurnerf_torch.models.voxnerf import compute_grid_size
-    from evdeblurnerf_torch.ops import triplane
-
-    grid = compute_grid_size(AABB[0], AABB[1], n_vox)
-    planes, lines = [], []
-    for i, c in enumerate((64, 16, 16)):
-        m0, m1 = triplane.MAT_MODE[i]
-        planes.append(0.1 * torch_randn(dev, g, c, grid[m1], grid[m0]))
-        lines.append(0.1 * torch_randn(dev, g, c,
-                                       grid[triplane.VEC_MODE[i]]))
-    return grid, planes, lines
-
-
 def torch_randn(dev, g, *shape):
     import torch
 
@@ -286,7 +291,6 @@ def phase_kernels(dev):
 
     from evdeblurnerf_torch.ops import (fused_sample, lane_shuffle,
                                        line_matmul, triplane)
-    from evdeblurnerf_torch.models.voxnerf import compute_grid_size
     from evdeblurnerf_torch.ops.sample_pdf import (searchsorted_right,
                                                    unit_linspace)
 
@@ -404,53 +408,70 @@ def phase_kernels(dev):
         kernel=lambda: lane_shuffle.cdf_take(cdf, bins, below, above),
         plain=lambda: lane_shuffle.cdf_take_plain(cdf, bins, below, above))
 
-    # K4 forward and K5 backward on coarse- and fine-size tables; points
-    # reach past [-1, 1] so the zeros-padding and clip rules run, as they
-    # do for rays leaving the aabb
-    xyz = torch.rand(K4_POINTS, 3, generator=g, device=dev) * 2.2 - 1.1
-    cot = torch_randn(dev, g, K4_POINTS, 96)
+    # K4 forward and K5 backward (with K6 for the line tables) at the cases
+    # of tools/bench_kernel_variants_torch.py: 2,097,152 uniform points on
+    # the coarse and fine tables (K4 is timed there), the step's own launch
+    # sizes, and the ray-ordered stream of one step. The wrapper
+    # triplane_features_bwd launches K5's kernel, one K6 kernel and
+    # PyTorch glue, so its back-to-back ms is split by kernel name
+    bench = _load_tool("bench_kernel_variants_torch")
+    timing = _load_tool("timing_torch")
+    paper = train_args()
+    check(bench.N_VOXELS == dict(coarse=paper.coarse_n_voxels,
+                                 fine=paper.fine_n_voxels)
+          and list(bench.N_COMP) == list(paper.fine_app_n_comp)
+          and bench.AABB == AABB,
+          "tools/bench_kernel_variants_torch.py is not at the paper's tables")
     k4 = _kernel_entry("fused_sample.cu",
                        "evdeblurnerf_tpu/ops/fused_sample.py:92", 0.0, 0, 0)
-    k5 = _kernel_entry("fused_sample.cu",
-                       "evdeblurnerf_tpu/ops/fused_sample.py:112", 0.0, 0, 0,
-                       max_rel_err=0.0)
-    paper = train_args()
-    for label, n_vox in (("coarse", paper.coarse_n_voxels),
-                         ("fine", paper.fine_n_voxels)):
-        grid, planes, lines = _paper_grids(dev, g, n_vox)
-        packed = triplane.pack_grids(planes, lines)
-        got = fused_sample.triplane_features(*packed, xyz)
-        want = triplane.triplane_features_packed(*packed, xyz)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"K4 {label}: non-finite")
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        check(err <= K4_REL_TOL * scale,
-              f"K4 {label}: max |kernel - plain| {err:.3e} exceeds "
-              f"{K4_REL_TOL} x {scale:.3e}")
-        del got, want
-        ms, plain_ms = ab_ms(
-            lambda: triplane.triplane_features_packed(*packed, xyz),
-            lambda: fused_sample.triplane_features(*packed, xyz))
-        k4["max_abs_err"] = max(k4["max_abs_err"], err)
-        k4[f"ms_{label}"], k4[f"plain_ms_{label}"] = ms, plain_ms
-        k4[f"grid_{label}"] = list(grid)
+    k5 = _kernel_entry(
+        "fused_sample.cu", "evdeblurnerf_tpu/ops/fused_sample.py:112", 0.0, 0,
+        0, max_rel_err=0.0, cases={},
+        ms_is="the wrapper ops/fused_sample.py::triplane_features_bwd back "
+        "to back: torch.zeros of the three plane gradients and of the line "
+        "gradients, K5's kernel (device_ms; at these tables the fused one, "
+        "which sums the line gradients itself, so k6_device_ms is 0) and "
+        "three permute().contiguous() to [C, H, W]; glue_device_ms is the "
+        "PyTorch part")
+    for case, (label, n, stream) in bench.K5_CASES.items():
+        planes, lines, packed, xyz, cot = bench.k5_inputs(dev, g, case)
+        n_ch = sum(p.shape[0] for p in planes)
         # xyz and the touched table rows read, [N, 96] written; per point
         # and channel 4 + 2 slot products, their sums and plane x line
-        n_ch = sum(p.shape[0] for p in planes)
         # (the neighbour-packed tables hold each cell several times; the
         # function's data is the raw grids, so those cap the count)
-        rows_bytes = (sum(_touched_bytes(p, K4_POINTS, 4) for p in planes)
-                      + sum(_touched_bytes(ln, K4_POINTS, 2) for ln in lines))
-        k4_bytes = 4 * K4_POINTS * (3 + n_ch) + rows_bytes
+        rows_bytes = (sum(_touched_bytes(p, n, 4) for p in planes)
+                      + sum(_touched_bytes(ln, n, 2) for ln in lines))
+        k4_bytes = 4 * n * (3 + n_ch) + rows_bytes
         # K5 reads xyz, the cells and the cotangent, and writes the three
         # plane gradients, the three [C, D] line gradients and d(xyz);
         # the per-point line-row cotangents between it and K6 are scratch
-        k5_bytes = (4 * K4_POINTS * (3 + n_ch) + rows_bytes
+        k5_bytes = (4 * n * (3 + n_ch) + rows_bytes
                     + 4 * sum(p.numel() for p in planes)
-                    + 4 * sum(ln.numel() for ln in lines)
-                    + 4 * K4_POINTS * 3)
-        k4_flops, k5_flops = 11 * n_ch * K4_POINTS, 40 * n_ch * K4_POINTS
+                    + 4 * sum(ln.numel() for ln in lines) + 4 * n * 3)
+        k4_flops, k5_flops = 11 * n_ch * n, 40 * n_ch * n
+        at_bench = case.startswith("bench_")
+        if at_bench:
+            got = fused_sample.triplane_features(*packed, xyz)
+            want = triplane.triplane_features_packed(*packed, xyz)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"K4 {label}: non-finite")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= K4_REL_TOL * scale,
+                  f"K4 {label}: max |kernel - plain| {err:.3e} exceeds "
+                  f"{K4_REL_TOL} x {scale:.3e}")
+            del got, want
+            ms, plain_ms = ab_ms(
+                lambda: triplane.triplane_features_packed(*packed, xyz),
+                lambda: fused_sample.triplane_features(*packed, xyz))
+            k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            k4[f"ms_{label}"], k4[f"plain_ms_{label}"] = ms, plain_ms
+            k4[f"grid_{label}"] = [planes[0].shape[2], planes[0].shape[1],
+                                   lines[0].shape[1]]
+            if label == "fine":
+                k4["ms"], k4["plain_ms"] = ms, plain_ms
+                _set_bound(k4, k4_bytes, k4_flops)
 
         got = fused_sample.triplane_features_bwd(planes, lines, packed, xyz,
                                                  cot)
@@ -462,59 +483,119 @@ def phase_kernels(dev):
         pk = triplane.pack_grids(leaves[:3], leaves[3:6])
         feats = triplane.triplane_features_packed(*pk, leaves[6])
         want = torch.autograd.grad(feats, leaves, cot, retain_graph=True)
+        rel = 0.0
         for name, a, b in zip(("plane0", "plane1", "plane2", "line0",
                                "line1", "line2", "xyz"), got, want):
             err = float((a - b).abs().max())
             scale = float(b.abs().max())
             check(err <= GRAD_REL_TOL * scale,
-                  f"K5 {label} d_{name}: max |kernel - plain| {err:.3e} "
+                  f"K5 {case} d_{name}: max |kernel - plain| {err:.3e} "
                   f"exceeds {GRAD_REL_TOL} x {scale:.3e}")
             k5["max_abs_err"] = max(k5["max_abs_err"], err)
-            k5["max_rel_err"] = max(k5["max_rel_err"], err / scale)
+            rel = max(rel, err / scale)
+        k5["max_rel_err"] = max(k5["max_rel_err"], rel)
         del got, want
-        ms, plain_ms = ab_ms(
-            lambda: torch.autograd.grad(feats, leaves, cot,
-                                        retain_graph=True),
-            lambda: fused_sample.triplane_features_bwd(planes, lines, packed,
-                                                       xyz, cot))
-        k5[f"ms_{label}"], k5[f"plain_ms_{label}"] = ms, plain_ms
-        del feats, leaves, pk, packed, planes, lines
+        rec = _timed(bench.time_k5, timing, planes, lines, packed, xyz, cot)
+        rec.update(tables=label, points=n, stream=stream, max_rel_err=rel,
+                   bound_ms=1e3 * k5_bytes / HBM_BYTES_PER_S, bytes=k5_bytes)
+        if at_bench:
+            rec["ms"], rec["plain_ms"] = ab_ms(
+                lambda: torch.autograd.grad(feats, leaves, cot,
+                                            retain_graph=True),
+                lambda: fused_sample.triplane_features_bwd(
+                    planes, lines, packed, xyz, cot))
+            k5[f"ms_{label}"] = rec["ms"]
+            k5[f"plain_ms_{label}"] = rec["plain_ms"]
+        if case == "bench_fine":
+            k5.update({k: rec[k] for k in ("ms", "plain_ms", "device_ms",
+                                           "k6_device_ms",
+                                           "glue_device_ms")})
+            _set_bound(k5, k5_bytes, k5_flops)
+        k5["cases"][case] = rec
+        del feats, leaves, pk, packed, planes, lines, xyz, cot
         torch.cuda.empty_cache()
-    k4["ms"], k4["plain_ms"] = k4["ms_fine"], k4["plain_ms_fine"]
-    k5["ms"], k5["plain_ms"] = k5["ms_fine"], k5["plain_ms_fine"]
-    # the bounds at the fine tables, the last of the loop
-    _set_bound(k4, k4_bytes, k4_flops)
-    _set_bound(k5, k5_bytes, k5_flops)
     results["triplane_features"] = k4
     results["triplane_features_bwd"] = k5
-    del xyz, cot
 
-    # K6 at the fine 64-component line table: D = 366 rows of 2C = 128
-    D = compute_grid_size(AABB[0], AABB[1], paper.fine_n_voxels)[2]
-    idx = torch.randint(0, D, (K4_POINTS,), generator=g, device=dev,
-                        dtype=torch.int32)
-    rows = torch_randn(dev, g, K4_POINTS, 128)
-    got = line_matmul.line_grad(idx, rows, D)
-    want = line_matmul.line_grad_plain(idx, rows, D)
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    check(err <= GRAD_REL_TOL * scale,
-          f"K6 line_grad: max |kernel - plain| {err:.3e} exceeds "
-          f"{GRAD_REL_TOL} x {scale:.3e}")
-    ms, plain_ms = ab_ms(lambda: line_matmul.line_grad_plain(idx, rows, D),
-                         lambda: line_matmul.line_grad(idx, rows, D))
-    idx64 = idx.long()
-    results["line_grad"] = _kernel_entry(
-        "line_matmul.cu", "evdeblurnerf_tpu/ops/line_matmul.py:39", err,
-        ms, plain_ms,
-        # the index and g [N, 128] read, the [D, 128] table written; one
-        # add per element of g
-        4 * (K4_POINTS * 129 + D * 128), K4_POINTS * 128,
-        library_ms=cuda_ms(lambda: torch.zeros(
-            D, 128, device=dev).index_add_(0, idx64, rows)),
-        max_rel_err=err / scale)
-    del rows, got, want
+    # K6 alone, one table a launch, at the fine and coarse 64-component
+    # line tables (D rows of 2C = 128) and the fine 16-component one (32
+    # wide), row indices uniform or those of the ray-ordered stream
+    k6 = _kernel_entry("line_matmul.cu",
+                       "evdeblurnerf_tpu/ops/line_matmul.py:39", 0.0, 0, 0,
+                       max_rel_err=0.0, cases={})
+    for case in bench.K6_CASES:
+        idx, rows, D = bench.k6_inputs(dev, g, case)
+        n, W = rows.shape
+        got = line_matmul.line_grad(idx, rows, D)
+        want = line_matmul.line_grad_plain(idx, rows, D)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= GRAD_REL_TOL * scale,
+              f"K6 line_grad {case}: max |kernel - plain| {err:.3e} exceeds "
+              f"{GRAD_REL_TOL} x {scale:.3e}")
+        del got, want
+        k6["max_abs_err"] = max(k6["max_abs_err"], err)
+        k6["max_rel_err"] = max(k6["max_rel_err"], err / scale)
+        rec = _timed(bench.time_k6, timing, idx, rows, D)
+        # the index and g [N, W] read, the [D, W] table written; one add
+        # per element of g
+        k6_bytes = 4 * (n * (W + 1) + D * W)
+        rec.update(D=D, W=W, points=n, stream=bench.K6_CASES[case][3],
+                   max_rel_err=err / scale, bytes=k6_bytes,
+                   bound_ms=1e3 * k6_bytes / HBM_BYTES_PER_S)
+        if case == "bench":
+            rec["ms"], rec["plain_ms"] = ab_ms(
+                lambda: line_matmul.line_grad_plain(idx, rows, D),
+                lambda: line_matmul.line_grad(idx, rows, D))
+            k6.update({k: rec[k] for k in ("ms", "plain_ms", "device_ms",
+                                           "library_ms")})
+            _set_bound(k6, k6_bytes, n * W)
+        k6["cases"][case] = rec
+        del idx, rows
+        torch.cuda.empty_cache()
+    # K6 on a path. The paper's line tables fit the shared memory of K5's
+    # fused kernel, so no training step launches K6; a sampler backward
+    # over a 64-component line of 1024 rows does (K4 forward, K5's float4
+    # kernel with scratch, then K6 for the three tables)
+    from evdeblurnerf_torch import kernels
+
+    planes, lines = [], []
+    for i, c in enumerate(bench.N_COMP):
+        m0, m1 = triplane.MAT_MODE[i]
+        planes.append(0.1 * torch_randn(dev, g, c, K6_PATH_GRID[m1],
+                                        K6_PATH_GRID[m0]))
+        lines.append(0.1 * torch_randn(
+            dev, g, c, K6_PATH_GRID[triplane.VEC_MODE[i]]))
+    xyz = bench.sample_points(dev, g, K6_PATH_POINTS, "uniform")
+    cot = torch_randn(dev, g, K6_PATH_POINTS, sum(bench.N_COMP))
+    leaves = [t.clone().requires_grad_() for t in (*planes, *lines, xyz)]
+    with torch.no_grad():
+        packed = triplane.pack_grids(leaves[:3], leaves[3:6])
+    kernels.reset_launches()
+    fused_sample.sample_grids(leaves[:3], leaves[3:6], packed,
+                              leaves[6]).backward(cot)
+    torch.cuda.synchronize()
+    path = dict(kernels.LAUNCHES)
+    check(path["triplane_features"] == 1
+          and path["triplane_features_bwd"] == 1 and path["line_grad"] == 1,
+          f"the tall-table sampler backward launched {path}")
+    want = fused_sample.triplane_features_bwd_plain(planes, lines, xyz, cot)
+    for name, a, b in zip(("plane0", "plane1", "plane2", "line0", "line1",
+                           "line2", "xyz"), [t.grad for t in leaves],
+                          [*want[0], *want[1], want[2]]):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        check(err <= GRAD_REL_TOL * scale,
+              f"K5 + K6 tall tables d_{name}: max |kernel - plain| "
+              f"{err:.3e} exceeds {GRAD_REL_TOL} x {scale:.3e}")
+        k6["max_rel_err"] = max(k6["max_rel_err"], err / scale)
+    k6.update(path_launches=path["line_grad"],
+              path=f"sample_grids backward, {K6_PATH_POINTS} points, grid "
+              f"{list(K6_PATH_GRID)}: line tables above the shared memory "
+              "of K5's fused kernel")
+    del planes, lines, leaves, packed, xyz, cot, want
     torch.cuda.empty_cache()
+    results["line_grad"] = k6
     results["tiled_plane_gather"] = kernel_tiled_gather(dev)
 
     for name, r in results.items():
@@ -528,9 +609,33 @@ def phase_kernels(dev):
               + f"; library call {lib}; bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops)")
         for suffix in ("", "_eval"):
-            if f"device_ms{suffix}" in r:
+            if f"device_cold_ms{suffix}" in r:
                 print(f"[3 kernel] {name}{suffix}: " + _small_line(r, suffix))
+        for case, c in r.get("cases", {}).items():
+            print(f"[3 kernel] {name} {case}: " + _case_line(c))
     return results
+
+
+_STREAMS = dict(uniform="uniform", rays="ray-ordered")
+
+
+def _case_line(c):
+    """One K5 or K6 case: the wrapper's back-to-back ms beside the
+    kernel's own device ms, the bound and the library call."""
+    if "tables" in c:       # K5
+        return (f"{c['points']} {_STREAMS[c['stream']]} points, "
+                f"{c['tables']} tables: "
+                f"wrapper {c['ms']:.4f} ms = K5 kernel device "
+                f"{c['device_ms']:.4f} ms + K6 kernel device "
+                f"{c['k6_device_ms']:.4f} ms + PyTorch glue device "
+                f"{c['glue_device_ms']:.4f} ms (+ gaps); library call none; "
+                f"bound {c['bound_ms']:.4f} ms ({c['bytes']} bytes); max rel "
+                f"err {c['max_rel_err']:.2e}")
+    return (f"D = {c['D']}, W = {c['W']}, {c['points']} "
+            f"{_STREAMS[c['stream']]} indices: wrapper {c['ms']:.4f} ms, kernel device "
+            f"{c['device_ms']:.4f} ms, library call (index_add_) "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bytes']} bytes); max rel err {c['max_rel_err']:.2e}")
 
 
 def _small_line(r, suffix):
@@ -870,7 +975,8 @@ def phase_train(dev, card):
           f"{peak_gib:.2f} GiB; CRF identity pre-fit {prefit_s:.1f} s; "
           f"losses {[round(v, 6) for v in losses]}; parameters changed "
           f"{ {g: f'{sum(f)}/{len(f)}' for g, f in changed.items()} }; "
-          f"launches {launches}")
+          f"launches {launches}; launches per step "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }")
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     crf_sd = {k: v.detach().cpu() for k, v in crf.state_dict().items()}
     del state, model, crf, before, named
@@ -1298,9 +1404,12 @@ def main():
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # launches: of the training kernels in phase 6's timed steps, of K7 on
-    # its bench entry point; beside them the counts of the other paths
+    # its bench entry point, of K6 on its tall-table sampler backward;
+    # beside them the counts of the other paths
+    # K6 on its own path in phase 3, since the paper's step needs it not
     for name, r in kernel_results.items():
         r["launches"] = (bench_launches if name == "tiled_plane_gather"
+                         else r.pop("path_launches") if "path_launches" in r
                          else train_launches[name])
         r["launches_loop"] = loop_launches[name]
         if name in SERVE_KERNELS:

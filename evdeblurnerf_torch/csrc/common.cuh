@@ -33,4 +33,39 @@ inline unsigned int blocks_for(int64_t work, int64_t per_block) {
   return static_cast<unsigned int>((work + per_block - 1) / per_block);
 }
 
+constexpr int kMaxDevices = 64;
+
+// Multiprocessors of a device and the dynamic shared memory a block can
+// opt in to (bytes), asked once per device.
+inline cudaError_t device_limits(int device, int* sms, int* smem_optin) {
+  static int cached_sms[kMaxDevices], cached_smem[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached_sms[device] == 0) {
+    int n_sm = 0, optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    cached_smem[device] = optin;
+    cached_sms[device] = n_sm;
+  }
+  *sms = cached_sms[device];
+  *smem_optin = cached_smem[device];
+  return cudaSuccess;
+}
+
+// Lets `kernel` use up to `bytes` of dynamic shared memory on `device`;
+// `raised` is the kernel's own flag array, one entry a device.
+template <typename Kernel>
+cudaError_t raise_shared_memory(Kernel kernel, int bytes, int device,
+                                bool* raised) {
+  if (raised[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) raised[device] = true;
+  return err;
+}
+
 }  // namespace evdn

@@ -6,8 +6,9 @@ PyTorch twin beside it:
 * ``ops/lane_shuffle.py``: K1 ``permute_lanes`` and its backward launch,
   K2 ``permute_lanes_3d`` forward and backward, K3 ``cdf_take``;
 * ``ops/fused_sample.py``: K4 ``triplane_features`` and K5
-  ``triplane_features_bwd``;
-* ``ops/line_matmul.py``: K6 ``line_grad``;
+  ``triplane_features_bwd`` (three kernels, chosen by shape);
+* ``ops/line_matmul.py``: K6 ``line_grad`` and ``line_grad_tables`` (three
+  tables in one launch, counted as one ``line_grad``);
 * ``ops/tiled_gather.py``: K7 ``tiled_plane_gather``.
 
 The wrapper asks :func:`wants_kernel`:
@@ -38,9 +39,11 @@ from . import build
 KERNELS = ("permute_lanes", "permute_lanes_bwd", "permute_lanes_3d",
            "permute_lanes_3d_bwd", "cdf_take", "triplane_features",
            "triplane_features_bwd", "line_grad", "tiled_plane_gather")
-# what one training step launches; K7 lies on no model path and runs from
-# its own entry point, tools/bench_tiled_gather_torch.py
-TRAIN_KERNELS = KERNELS[:-1]
+# what one training step launches. K6 runs only behind a K5 whose line
+# tables pass a block's shared memory (the paper's fit, so K5 sums them
+# itself); K7 lies on no model path and runs from its own entry point,
+# tools/bench_tiled_gather_torch.py
+TRAIN_KERNELS = KERNELS[:-2]
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

@@ -48,11 +48,15 @@ SIGNATURES = {
     # (H, W, D, C) x 3 projections, device, stream
     "evdn_triplane_features": (_P,) * 8 + (_L,) + (_I,) * 12 + (_I, _P),
     # xyz, 3 packed planes, 3 packed lines, g, 3 plane grads, 3 line-row
-    # grads, xyz grad, n, (H, W, D, C) x 3 projections, device, stream
-    "evdn_triplane_features_bwd": (_P,) * 15 + (_L,) + (_I,) * 12
-    + (_I, _P),
+    # grads (fused: the 3 raw line grads), 3 line-row indices, xyz grad, n,
+    # (H, W, D, C) x 3 projections, mode (0 scalar, 1 float4, 2 fused),
+    # device, stream
+    "evdn_triplane_features_bwd": (_P,) * 18 + (_L,) + (_I,) * 12
+    + (_I, _I, _P),
     # idx, g, out, n, D, W, device, stream
     "evdn_line_grad": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # 3 idx, 3 g, 3 out, n, (D, W) x 3 tables, device, stream
+    "evdn_line_grad_tables": (_P,) * 9 + (_L,) + (_I,) * 6 + (_I, _P),
     # plane, fu, fv, oy, ox, out, groups, H, W, C, TH, TW, device, stream
     "evdn_tiled_plane_gather": (_P,) * 6 + (_L,) + (_I,) * 5 + (_I, _P),
 }

@@ -14,8 +14,10 @@ and K5 adds the plane gradients straight into the raw grids' layout.
 autograd owns their gradients, while its forward reads the packed tables.
 Its forward is :func:`triplane_features` (K4; plain twin
 ``ops/triplane.py::triplane_features_packed``), its backward
-:func:`triplane_features_bwd` (K5, with K6 for the line tables; plain
-twin: autograd through ``pack_grids`` and the packed sampler).
+:func:`triplane_features_bwd` (K5, which sums the line gradients itself
+where the line tables fit a block's shared memory and else hands them to
+one launch of K6; plain twin: autograd through ``pack_grids`` and the
+packed sampler).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .. import kernels
-from .line_matmul import line_grad
+from .line_matmul import line_grad_tables
 from .triplane import VEC_MODE, pack_grids, triplane_features_packed
 
 
@@ -87,7 +89,9 @@ def triplane_features(packed_planes: Sequence[torch.Tensor],
 def line_base_index(xyz: torch.Tensor, sizes) -> list:
     """The packed line row [N] int32 each point reads, per projection:
     ``clip(floor((x + 1) * 0.5 * (D - 1)), 0, D - 2)``, rounded where K4,
-    K5 and ``ops/triplane.py::_slot_weights`` round."""
+    K5 and ``ops/triplane.py::_slot_weights`` round. K5 writes the same
+    rows for K6 itself where it does not sum the line gradients on its
+    own; this is their plain version."""
     out = []
     for i in range(3):
         D = sizes[i][2]
@@ -96,14 +100,28 @@ def line_base_index(xyz: torch.Tensor, sizes) -> list:
     return out
 
 
-def pack_line_vjp(d_packed: torch.Tensor) -> torch.Tensor:
-    """Gradient of ``ops/triplane.py::pack_line``: packed row d holds
-    texels (d, d+1), so d_line[:, d] = d_packed[d, :C] + d_packed[d-1, C:].
-    [D, 2C] -> [C, D]."""
-    C = d_packed.shape[1] // 2
-    d = d_packed[:, :C].clone()
-    d[1:] += d_packed[:-1, C:]
-    return d.T.contiguous()
+# the three forms of kernel K5 (csrc/fused_sample.cu)
+K5_SCALAR, K5_FLOAT4, K5_FUSED = 0, 1, 2
+# the fused kernel's shared memory: points a pass of a block's loop, and
+# floats between the rows of a line tile (kFusedPoints, kTilePad)
+K5_FUSED_POINTS, K5_TILE_PAD = 512, 4
+
+
+def _k5_mode(Cs, Ds, wide, device) -> int:
+    """Which K5 kernel these shapes take. ``K5_SCALAR`` unless every
+    component count is a multiple of 4 and every tensor of ``wide`` lies
+    on a 16-byte boundary; then ``K5_FUSED`` when no count passes 128 and
+    the kernel's shared memory (d(xyz) of a pass plus the three line
+    tiles, rows four floats apart) fits what a block of ``device`` can opt
+    in to, else ``K5_FLOAT4``."""
+    if any(C % 4 for C in Cs) or any(t.data_ptr() % 16 for t in wide):
+        return K5_SCALAR
+    need = 4 * (3 * K5_FUSED_POINTS
+                + sum(D * (C + K5_TILE_PAD) for C, D in zip(Cs, Ds)))
+    if max(Cs) <= 128 and need <= torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin:
+        return K5_FUSED
+    return K5_FLOAT4
 
 
 def triplane_features_bwd_plain(planes, lines, xyz, g):
@@ -123,18 +141,23 @@ def triplane_features_bwd(planes, lines, packed, xyz, g):
     g: (d_planes 3 x [C, H, W], d_lines 3 x [C, D], d_xyz [N, 3]).
 
     ``planes``/``lines`` are the raw grids and ``packed`` = (packed_planes,
-    packed_lines, sizes) the tables packed from them. On CUDA tensors:
-    kernel K5 reads the packed tables, adds the plane gradients into
-    texel-major [H*W, C] buffers and writes the per-point line-row
-    cotangents, which kernel K6 reduces per line row before the pack_line
-    VJP. On CPU tensors: :func:`triplane_features_bwd_plain`.
+    packed_lines, sizes) the tables packed from them. On CUDA tensors
+    kernel K5 reads the packed tables and adds the plane gradients into
+    texel-major [H*W, C] buffers, in one of three forms
+    (:func:`_k5_mode`): fused, where the three line tables fit the shared
+    memory of a block, it sums the raw line gradients itself; else it
+    writes the per-point line-row cotangents and the line row of each
+    point, from which one launch of kernel K6 sums them (the pack_line VJP
+    folded in), four channels a lane or, for component counts that are no
+    multiple of 4 or buffers off a 16-byte boundary, one. On CPU tensors:
+    :func:`triplane_features_bwd_plain`.
     """
     if not kernels.wants_kernel(xyz, g, *planes, *lines):
         return triplane_features_bwd_plain(planes, lines, xyz, g)
     packed_planes, packed_lines, sizes = packed
     dims = _check_tables("triplane_features_bwd", packed_planes,
                          packed_lines, sizes, xyz)
-    Cs = dims[3::4]
+    Cs, Ds = dims[3::4], dims[2::4]
     n = xyz.shape[0]
     kernels.check_tensor("triplane_features_bwd g", g, torch.float32, 2)
     if tuple(g.shape) != (n, sum(Cs)):
@@ -143,18 +166,26 @@ def triplane_features_bwd(planes, lines, packed, xyz, g):
     dev = xyz.device
     d_plane_rows = [torch.zeros(H * W, C, device=dev)
                     for (H, W, _), C in zip(sizes, Cs)]
-    d_line_rows = [torch.empty(n, 2 * C, device=dev) for C in Cs]
     d_xyz = torch.empty(n, 3, device=dev)
-    kernels.launch("triplane_features_bwd", dev, xyz.data_ptr(),
-                   *(t.data_ptr() for t in (*packed_planes, *packed_lines)),
-                   g.data_ptr(), *(t.data_ptr() for t in d_plane_rows),
-                   *(t.data_ptr() for t in d_line_rows), d_xyz.data_ptr(),
-                   n, *dims)
+    wide = (*packed_planes, *packed_lines, g, *d_plane_rows)
+    mode = _k5_mode(Cs, Ds, wide, dev)
+    if mode == K5_FUSED:
+        # one buffer, so one memset; each gradient is a contiguous view
+        sz = [C * D for C, D in zip(Cs, Ds)]
+        buf = torch.zeros(sum(sz), device=dev)
+        d_lines = [t.view(C, D) for t, C, D in zip(buf.split(sz), Cs, Ds)]
+        line_out, line_rows = d_lines, (buf, buf, buf)      # rows: unused
+    else:
+        line_out = [torch.empty(n, 2 * C, device=dev) for C in Cs]
+        line_rows = list(torch.empty(3, n, dtype=torch.int32, device=dev))
+    kernels.launch("triplane_features_bwd", dev,
+                   *(t.data_ptr() for t in (xyz, *wide, *line_out,
+                                            *line_rows, d_xyz)),
+                   n, *dims, mode)
+    if mode != K5_FUSED:
+        d_lines = line_grad_tables(line_rows, line_out, Ds)
     d_planes = [rows.reshape(H, W, C).permute(2, 0, 1).contiguous()
                 for rows, (H, W, _), C in zip(d_plane_rows, sizes, Cs)]
-    d_lines = [pack_line_vjp(line_grad(idx, rows, D))
-               for idx, rows, (_, _, D) in zip(
-                   line_base_index(xyz, sizes), d_line_rows, sizes)]
     return d_planes, d_lines, d_xyz
 
 

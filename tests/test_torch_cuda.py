@@ -12,7 +12,10 @@ contraction), so it is held to 1e-6 of the output's largest magnitude and
 is expected to be exact. K5 and K6 add with atomics, in an order that
 changes from run to run, and K5 contracts its products into FMAs: they are
 held to 1e-5 of each gradient's largest magnitude (f32 sums of up to a few
-thousand terms per entry in another order). K7 multiplies and adds where
+thousand terms per entry in another order), on uniform and on ray-ordered
+streams, through K5's fused, float4 and scalar kernels and K6's bulk and
+per-entry flushes and its splits along D and W, each forced by shape, and
+twice in a row. K7 multiplies and adds where
 its plain twin does (no FMA contraction) and must equal it bitwise, with
 exact zeros on the spilled rows.
 """
@@ -122,7 +125,7 @@ def test_wrappers_check_their_inputs(dev):
     with pytest.raises(NotImplementedError, match="K3"):
         lane_shuffle.cdf_take(x.requires_grad_(), x.detach(), idx, idx)
     with pytest.raises(ValueError, match="D="):
-        line_matmul.line_grad(idx[:, 0].contiguous(), x.detach(), 20000)
+        line_matmul.line_grad(idx[:, 0].contiguous(), x.detach(), 0)
 
 
 @pytest.mark.parametrize("R,M,Mb,N", [(32768, 63, 63, 64), (17, 5, 5, 5),
@@ -186,20 +189,69 @@ def test_triplane_kernel_nan_coords_stay_in_bounds(dev):
     assert torch.equal(got[1:], want)
 
 
-@pytest.mark.parametrize("D,W,n", [(366, 128, 1 << 20), (605, 32, 300000),
-                                   (5, 3, 1000)])
-def test_line_grad_kernel_matches_plain(dev, D, W, n):
-    g = torch.Generator(device=dev).manual_seed(n)
+def _line_idx(dev, g, D, n, stream):
+    """Row indices [n] int32: uniform, or sorted into long runs as the
+    lines that follow x and y see them on a ray-ordered stream."""
     idx = torch.randint(0, D, (n,), generator=g, device=dev,
                         dtype=torch.int32)
+    if stream == "runs":
+        idx = torch.sort(idx)[0].contiguous()
     idx[:3] = torch.tensor([-1, D, D - 1], device=dev)   # out of range: no-op
+    idx[n // 2] = 1 << 30
+    return idx
+
+
+@pytest.mark.parametrize("D,W,n,stream", [
+    (366, 128, 1 << 20, "uniform"), (605, 32, 300000, "uniform"),
+    (5, 3, 1000, "uniform"),            # W no multiple of 4, one small tile
+    (366, 128, 1 << 20, "runs"), (605, 32, 300000, "runs"),
+    (183, 128, 655360, "uniform"),      # the coarse 64-component line
+    (2000, 64, 200000, "uniform"),      # above the tile: split along D
+    (300, 200, 100000, "uniform"),      # split along W: 128 + 72 columns
+    (1500, 130, 50000, "runs"),         # split along both
+    (7, 70, 5000, "uniform")])          # three columns a lane, six masked
+def test_line_grad_kernel_matches_plain(dev, D, W, n, stream):
+    g = torch.Generator(device=dev).manual_seed(n)
+    idx = _line_idx(dev, g, D, n, stream)
     rows = torch.randn(n, W, generator=g, device=dev)
     kernels.reset_launches()
     got = line_matmul.line_grad(idx, rows, D)
     assert kernels.LAUNCHES["line_grad"] == 1
     keep = (idx >= 0) & (idx < D)
-    want = line_matmul.line_grad_plain(idx[keep], rows[keep], D)
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    want = torch.zeros(D, W, device=dev).index_add_(0, idx[keep].long(),
+                                                    rows[keep])
+    tol = 1e-5 * float(want.abs().max())
+    twin = line_matmul.line_grad_plain(idx, rows, D)     # drops them itself
+    assert float((twin - want).abs().max()) <= tol
+    assert float((got - want).abs().max()) <= tol
+    # a second run adds in another order: the same bound holds
+    again = line_matmul.line_grad(idx, rows, D)
+    assert float((again - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("Ds,Ws,n,stream", [
+    ((366, 605, 605), (128, 32, 32), 300000, "uniform"),   # the fine tables
+    ((366, 605, 605), (128, 32, 32), 300000, "runs"),
+    ((183, 302, 302), (128, 32, 32), 655360, "uniform"),   # the coarse ones
+    ((13, 19, 17), (12, 6, 6), 3000, "uniform"),
+    ((2000, 9, 40), (64, 2, 200), 20000, "runs")])         # splits, C = 1
+def test_line_grad_tables_match_three_calls(dev, Ds, Ws, n, stream):
+    """One launch for three tables, the pack VJP folded in, against three
+    one-table launches and against the plain twin."""
+    g = torch.Generator(device=dev).manual_seed(n + sum(Ws))
+    idx = [_line_idx(dev, g, D, n, stream) for D in Ds]
+    rows = [torch.randn(n, W, generator=g, device=dev) for W in Ws]
+    kernels.reset_launches()
+    got = line_matmul.line_grad_tables(idx, rows, Ds)
+    assert kernels.LAUNCHES["line_grad"] == 1
+    single = [line_matmul.pack_line_vjp(line_matmul.line_grad(i, r, D))
+              for i, r, D in zip(idx, rows, Ds)]
+    want = line_matmul.line_grad_tables_plain(idx, rows, Ds)
+    for a, b, c in zip(got, single, want):
+        assert a.shape == b.shape == c.shape and a.is_contiguous()
+        tol = 1e-5 * float(c.abs().max())
+        assert float((a - c).abs().max()) <= tol
+        assert float((a - b).abs().max()) <= 2 * tol
 
 
 def _clustered(dev, g, groups, H, W, spread, outliers):
@@ -317,10 +369,21 @@ def test_tiled_gather_group_that_spills_whole(dev):
                 .any())
 
 
-def _grad_case(dev, g, comps, grid, n):
+def _grad_case(dev, g, comps, grid, n, stream="uniform"):
     planes, lines = _tables(dev, g, comps, grid)
     packed = triplane.pack_grids(planes, lines)
-    xyz = torch.rand(n, 3, generator=g, device=dev) * 2.6 - 1.3
+    if stream == "rays":
+        # ray-major: 64 samples a ray, a ray crosses a few texels of a plane
+        rays = n // 64
+        o = torch.rand(rays, 1, 3, generator=g, device=dev) * 2.2 - 1.1
+        d = torch.randn(rays, 1, 3, generator=g, device=dev) * \
+            torch.tensor([0.02, 0.02, 1.0], device=dev)
+        t = torch.sort(torch.rand(rays, 64, 1, generator=g, device=dev), 1)[0]
+        xyz = (o + d * t).reshape(-1, 3).contiguous()
+        n = xyz.shape[0]
+    else:
+        xyz = torch.rand(n, 3, generator=g, device=dev) * 2.6 - 1.3
+    # texel boundaries, the last texel of every axis, points outside
     xyz[:6] = torch.tensor([[1.0, 1.0, 1.0], [-1.0, -1.0, -1.0],
                             [1.0, -1.0, 0.0], [-1.05, 1.05, 0.999],
                             [0.0, 0.0, 0.0], [2.0, -3.0, 1.0]], device=dev)
@@ -334,19 +397,59 @@ def _assert_grads_close(got, want):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("comps,grid,n", [((8, 4, 4), (19, 17, 13), 5000),
-                                          ((64, 16, 16), (302, 302, 183),
-                                           1 << 20)])
-def test_triplane_bwd_kernel_matches_plain(dev, comps, grid, n):
+@pytest.mark.parametrize("comps,grid,n,stream,mode", [
+    ((8, 4, 4), (19, 17, 13), 5000, "uniform", "fused"),
+    ((64, 16, 16), (302, 302, 183), 1 << 20, "uniform", "fused"),
+    ((64, 16, 16), (302, 302, 183), 1 << 19, "rays", "fused"),
+    ((64, 16, 16), (605, 605, 366), 1 << 19, "rays", "fused"),
+    ((12, 4, 20), (19, 17, 13), 5001, "uniform", "fused"),  # 3, 1, 5 lanes
+    ((8, 4, 4), (19, 17, 13), 4096, "rays", "fused"),
+    ((128, 4, 8), (9, 8, 300), 70000, "rays", "fused"),     # a warp a point
+    ((64, 16, 16), (40, 36, 1024), 1 << 18, "uniform", "float4"),  # tables
+    ((64, 16, 16), (40, 36, 1024), 1 << 18, "rays", "float4"),  # too large
+    ((160, 4, 4), (9, 8, 7), 777, "uniform", "float4"),     # C above 128
+    ((6, 3, 5), (19, 17, 13), 5000, "uniform", "scalar"),
+    ((6, 3, 5), (19, 17, 13), 4096, "rays", "scalar")])
+def test_triplane_bwd_kernel_matches_plain(dev, comps, grid, n, stream, mode):
+    """Each of K5's three kernels, forced by shape, against the twin; K6
+    launches only behind the two that write the scratch."""
     g = torch.Generator(device=dev).manual_seed(n)
-    planes, lines, packed, xyz, cot = _grad_case(dev, g, comps, grid, n)
+    planes, lines, packed, xyz, cot = _grad_case(dev, g, comps, grid, n,
+                                                 stream)
+    got_mode = fused_sample._k5_mode(
+        comps, [s[2] for s in packed[2]], (*packed[0], *packed[1], cot), dev)
+    assert got_mode == dict(scalar=fused_sample.K5_SCALAR,
+                            float4=fused_sample.K5_FLOAT4,
+                            fused=fused_sample.K5_FUSED)[mode]
     kernels.reset_launches()
     got = fused_sample.triplane_features_bwd(planes, lines, packed, xyz, cot)
     assert kernels.LAUNCHES["triplane_features_bwd"] == 1
-    assert kernels.LAUNCHES["line_grad"] == 3
+    assert kernels.LAUNCHES["line_grad"] == (0 if mode == "fused" else 1)
     want = fused_sample.triplane_features_bwd_plain(planes, lines, xyz, cot)
-    _assert_grads_close([*got[0], *got[1], got[2]],
-                        [*want[0], *want[1], want[2]])
+    want = [*want[0], *want[1], want[2]]
+    _assert_grads_close([*got[0], *got[1], got[2]], want)
+    # a second run adds in another order: the same bound holds
+    again = fused_sample.triplane_features_bwd(planes, lines, packed, xyz,
+                                               cot)
+    _assert_grads_close([*again[0], *again[1], again[2]], want)
+
+
+def test_triplane_bwd_scalar_kernel_equals_float4_kernel(dev):
+    """A cotangent that starts off a 16-byte boundary sends the same
+    shapes through the scalar kernel and K6 instead of the fused float4
+    kernel: both agree with the twin."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    planes, lines, packed, xyz, cot = _grad_case(dev, g, (8, 4, 4),
+                                                 (19, 17, 13), 3000)
+    shifted = torch.empty(cot.numel() + 1, device=dev)[1:].view_as(cot)
+    shifted.copy_(cot)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    want = fused_sample.triplane_features_bwd_plain(planes, lines, xyz, cot)
+    want = [*want[0], *want[1], want[2]]
+    for c in (cot, shifted):
+        got = fused_sample.triplane_features_bwd(planes, lines, packed, xyz,
+                                                 c)
+        _assert_grads_close([*got[0], *got[1], got[2]], want)
 
 
 def test_sample_grids_card_matches_cpu(dev):

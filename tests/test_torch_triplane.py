@@ -112,16 +112,45 @@ def test_unpacked_sampler_matches_jax_and_grid_sample():
 # gradients: K5 (sample_grids) and K6 (line_grad) twins, the field's tables
 # ---------------------------------------------------------------------------
 
-def test_sample_grids_vjp_matches_jax_fused_k5():
+def _ray_points(rng, rays=40, S=32):
+    """Ray-major points: the S samples of a ray cross a few texels of
+    every plane, so neighbouring points repeat their texels, and the rays
+    start and end outside [-1, 1]."""
+    o = rng.uniform(-1.1, 1.1, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3)) * np.array([0.05, 0.05, 1.0])
+    t = np.sort(rng.uniform(0, 1, (rays, S, 1)), 1)
+    return (o + d * t).reshape(-1, 3).astype(np.float32)
+
+
+def _boundary_points(hwd=(17, 19, 13)):
+    """Points exactly on texel boundaries of every axis (f == floor(f),
+    the first and the last texel among them), on and outside [-1, 1]."""
+    H, W, D = hwd
+    axes = [np.arange(-1, n + 1, dtype=np.float64) / (n - 1) * 2 - 1
+            for n in (W, H, D)]
+    n = max(len(a) for a in axes)
+    cols = [np.resize(a, n) for a in axes]
+    pts = [np.stack(cols, -1), np.stack([cols[0][::-1], cols[1], cols[2]], -1),
+           np.stack([cols[0], cols[1][::-1], cols[2][::-1]], -1)]
+    return np.concatenate(pts, 0).astype(np.float32)
+
+
+@pytest.mark.parametrize("comps,points", [
+    ((8, 4, 4), "edges"), ((8, 4, 4), "rays"), ((8, 4, 4), "boundaries"),
+    ((6, 3, 5), "edges"), ((6, 3, 5), "rays"), ((12, 4, 20), "boundaries")])
+def test_sample_grids_vjp_matches_jax_fused_k5(comps, points):
     """The sampler's autograd.Function on CPU tensors (K4 and K5 plain
     twins) against jax.vjp of the fused sampler, whose backward runs the
     Pallas kernel K5 in interpret mode: d_planes, d_lines and d_xyz within
     1e-5 of each gradient's largest magnitude, with points past [-1, 1]
-    and on the last texel of every axis."""
+    and on the last texel of every axis, ray-ordered points that repeat
+    their texels, points on texel boundaries, and component counts that
+    are no multiple of 4."""
     rng = np.random.default_rng(4)
-    planes, lines = _grids(rng)
-    xyz = _points(rng)
-    g = rng.normal(size=(xyz.shape[0], 16)).astype(np.float32)
+    planes, lines = _grids(rng, comps)
+    xyz = {"edges": _points, "rays": _ray_points}[points](rng) \
+        if points != "boundaries" else _boundary_points()
+    g = rng.normal(size=(xyz.shape[0], sum(comps))).astype(np.float32)
     out, vjp = jax.vjp(jfs.fused_triplane_features,
                        [jnp.asarray(p) for p in planes],
                        [jnp.asarray(l) for l in lines], jnp.asarray(xyz))
@@ -140,10 +169,40 @@ def test_sample_grids_vjp_matches_jax_fused_k5():
                                    atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("D,W,n", [(11, 8, 3000), (366, 32, 2500)])
-def test_line_grad_matches_pallas_k6(D, W, n):
-    rng = np.random.default_rng(D)
+def test_line_base_index_is_the_row_the_sampler_reads():
+    """``line_base_index`` (the plain version of the rows K5 hands to K6)
+    equals the JAX sampler's clipped base index on every axis, texel
+    boundaries and points outside [-1, 1] included."""
+    xyz = np.concatenate([_boundary_points(), _points(
+        np.random.default_rng(9))], 0)
+    sizes = [(17, 19, 13), (13, 17, 19), (13, 19, 17)]
+    got = fused_sample.line_base_index(torch.from_numpy(xyz), sizes)
+    for i, rows in enumerate(got):
+        D = sizes[i][2]
+        f = (jnp.asarray(xyz[:, ttp.VEC_MODE[i]]) + 1.0) * 0.5 * (D - 1)
+        want = np.asarray(jnp.clip(jnp.floor(f), 0, D - 2).astype(jnp.int32))
+        assert rows.dtype == torch.int32
+        np.testing.assert_array_equal(rows.numpy(), want)
+
+
+def _line_idx(rng, D, n, stream):
     idx = rng.integers(0, D, n).astype(np.int32)
+    if stream == "runs":            # sorted: runs of n / D equal rows
+        idx = np.sort(idx)
+    elif stream == "outside":       # a third of the indices outside [0, D)
+        idx[::3] = rng.choice([-1, -D, D, D + 7, 1 << 30], len(idx[::3]))
+    return idx
+
+
+@pytest.mark.parametrize("D,W,n,stream", [
+    pytest.param(11, 8, 3000, "uniform", id="11-8-3000"),
+    pytest.param(366, 32, 2500, "uniform", id="366-32-2500"),
+    (366, 128, 5000, "runs"), (50, 16, 3000, "outside"),
+    (13, 6, 2000, "uniform"),       # W no multiple of 4
+    (2000, 32, 3000, "runs")])      # D x W above a 227 KB tile
+def test_line_grad_matches_pallas_k6(D, W, n, stream):
+    rng = np.random.default_rng(D)
+    idx = _line_idx(rng, D, n, stream)
     g = rng.normal(size=(n, W)).astype(np.float32)
     want = np.asarray(jlm.line_grad_matmul(jnp.asarray(idx), jnp.asarray(g),
                                            D, interpret=True))
@@ -151,6 +210,33 @@ def test_line_grad_matches_pallas_k6(D, W, n):
                                 D).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-6 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("Ds,Ws,n,stream", [
+    ((13, 19, 17), (16, 8, 8), 3000, "uniform"),
+    ((366, 605, 605), (128, 32, 32), 2048, "runs"),
+    ((9, 2000, 5), (6, 32, 2), 1500, "outside")])
+def test_line_grad_tables_match_three_pallas_k6_calls(Ds, Ws, n, stream):
+    """The three-table entry (raw [C, D] line gradients) against three
+    one-table calls of the port and of the JAX kernel (interpret mode),
+    each followed by the VJP of ``pack_line``."""
+    rng = np.random.default_rng(n)
+    idx = [_line_idx(rng, D, n, stream) for D in Ds]
+    g = [rng.normal(size=(n, W)).astype(np.float32) for W in Ws]
+    tidx = [torch.from_numpy(i) for i in idx]
+    tg = [torch.from_numpy(t) for t in g]
+    got = line_matmul.line_grad_tables(tidx, tg, Ds)
+    for i in range(3):
+        C = Ws[i] // 2
+        want = jlm.line_grad_matmul(jnp.asarray(idx[i]), jnp.asarray(g[i]),
+                                    Ds[i], interpret=True)
+        want = jax.vjp(jtp.pack_line, jnp.zeros((C, Ds[i])))[1](want)[0]
+        ours = line_matmul.pack_line_vjp(
+            line_matmul.line_grad(tidx[i], tg[i], Ds[i]))
+        assert got[i].shape == (C, Ds[i])
+        np.testing.assert_array_equal(got[i].numpy(), ours.numpy())
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6 * float(np.abs(want).max()))
 
 
 def _field(seed=0):

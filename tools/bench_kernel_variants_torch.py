@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""GPU timing: kernels K7 (``tiled_plane_gather``) and K1
-(``permute_lanes``) of the PyTorch/CUDA port, from the checkout this file
-lies in or from another one, so that two versions of the sources can be
-timed on one card, one after the other.
+"""GPU timing: kernels K7 (``tiled_plane_gather``), K1 (``permute_lanes``),
+K5 (``triplane_features_bwd``) and K6 (``line_grad``) of the PyTorch/CUDA
+port, from the checkout this file lies in or from another one, so that two
+versions of the sources can be timed on one card, one after the other.
 
 It imports ``evdeblurnerf_torch`` from the checkout at ``--checkout DIR``
 (default: this one), builds that checkout's kernels and calls them through
@@ -13,6 +13,18 @@ beside it. Per kernel it prints the device time from ``torch.profiler``
 with a warm L2 and after an L2 flush, the host's microseconds per call and
 the back-to-back CUDA-event time (``tools/timing_torch.py``).
 
+K5 and K6 (``--kernels k5,k6``) run at the paper's tables (``K5_CASES``,
+``K6_CASES``): 2,097,152 uniformly random points, the training step's own
+launch sizes (1,310,720 points on the fine tables, 655,360 on the coarse
+ones) and the ray-ordered stream of one step
+(``evdeblurnerf_torch/utils/locality.py::step_points_xyz``: 10,240 rays of
+128 samples, neighbouring points in neighbouring texels). The wrapper
+``triplane_features_bwd`` launches K5, PyTorch glue (memsets, the permutes
+of the plane gradients) and, where K5 does not sum the line gradients
+itself, K6, so beside its back-to-back time the device time is split by
+kernel name (K5's kernel, K6's kernels, the rest).
+``chip_smoke.py`` takes its K5 and K6 inputs and times from here.
+
 Another version is another directory: an earlier commit unpacked with
 ``git archive <commit> evdeblurnerf_torch | tar -x -C build/parent``, or a
 copy of the package with one source edited. Run the versions alternately
@@ -22,6 +34,7 @@ card in one go.
 Usage (needs one CUDA card and nvcc), from the root of a checkout:
     python tools/bench_kernel_variants_torch.py
     python tools/bench_kernel_variants_torch.py --checkout build/parent
+    python tools/bench_kernel_variants_torch.py --kernels k5,k6
 """
 
 import argparse
@@ -32,6 +45,31 @@ import sys
 
 TOOLS = os.path.dirname(os.path.abspath(__file__))
 K1_SHAPES = ((32768, 128), (10240, 128))
+# the paper configuration's grids (configs/evdeblurnerf_blender/
+# tx_blurfactory_evdeblurnerf_ediprior_evcrf.txt) in bench.py's box
+AABB = ((-1.6, -1.7, -1.0), (1.7, 1.6, 1.0))
+N_VOXELS = dict(coarse=16777248, fine=134217984)
+N_COMP = (64, 16, 16)
+BENCH_POINTS = 2_097_152
+STEP_RAYS, STEP_PTNUM, STEP_SAMPLES = 1024, 10, 128     # the fine RBK launch
+STEP_FINE_POINTS = STEP_RAYS * STEP_PTNUM * STEP_SAMPLES    # 1,310,720
+STEP_COARSE_POINTS = STEP_FINE_POINTS // 2                  # 64 samples
+# label: (tables, points, stream)
+K5_CASES = dict(
+    bench_fine=("fine", BENCH_POINTS, "uniform"),
+    bench_coarse=("coarse", BENCH_POINTS, "uniform"),
+    step_fine=("fine", STEP_FINE_POINTS, "uniform"),
+    step_coarse=("coarse", STEP_COARSE_POINTS, "uniform"),
+    rays_fine=("fine", STEP_FINE_POINTS, "rays"))
+# label: (tables, projection whose line table it is, points, stream); the
+# table is that projection's packed line: D rows of 2C columns
+K6_CASES = dict(
+    bench=("fine", 0, BENCH_POINTS, "uniform"),
+    step_fine=("fine", 0, STEP_FINE_POINTS, "uniform"),
+    step_coarse=("coarse", 0, STEP_COARSE_POINTS, "uniform"),
+    rays_fine=("fine", 0, STEP_FINE_POINTS, "rays"),
+    rays_fine_narrow=("fine", 1, STEP_FINE_POINTS, "rays"))
+K5_KERNEL, K6_KERNEL = "triplane_bwd", "line_grad"   # in the kernels' names
 
 
 def _load(name):
@@ -42,15 +80,130 @@ def _load(name):
     return mod
 
 
+def paper_grids(dev, g, tables):
+    """Random f32 grids ([C, H, W] planes, [C, D] lines) at the paper's
+    ``tables`` ("coarse" or "fine"); returns (grid size, planes, lines)."""
+    import torch
+
+    from evdeblurnerf_torch.models.voxnerf import compute_grid_size
+    from evdeblurnerf_torch.ops import triplane
+
+    grid = compute_grid_size(AABB[0], AABB[1], N_VOXELS[tables])
+    planes, lines = [], []
+    for i, c in enumerate(N_COMP):
+        m0, m1 = triplane.MAT_MODE[i]
+        planes.append(0.1 * torch.randn(c, grid[m1], grid[m0], generator=g,
+                                        device=dev))
+        lines.append(0.1 * torch.randn(c, grid[triplane.VEC_MODE[i]],
+                                       generator=g, device=dev))
+    return grid, planes, lines
+
+
+def sample_points(dev, g, n, stream):
+    """[n, 3] points: "uniform" reaches past [-1, 1], so the zeros-padding
+    and clip rules run, as they do for rays leaving the box; "rays" is the
+    ray-ordered stream of one training step's fine RBK launch, mapped from
+    [0, 1] to [-1, 1]."""
+    import torch
+
+    if stream == "uniform":
+        return torch.rand(n, 3, generator=g, device=dev) * 2.2 - 1.1
+    from evdeblurnerf_torch.utils.locality import step_points_xyz
+
+    xyz = step_points_xyz(STEP_RAYS, STEP_PTNUM, STEP_SAMPLES)
+    if xyz.shape[0] != n:
+        raise ValueError(f"the step's stream has {xyz.shape[0]} points, "
+                         f"not {n}")
+    return (torch.from_numpy(xyz).to(dev) * 2.0 - 1.0).contiguous()
+
+
+def k5_inputs(dev, g, case):
+    """(planes, lines, packed, xyz, cotangent) of one ``K5_CASES`` entry."""
+    import torch
+
+    from evdeblurnerf_torch.ops import triplane
+
+    tables, n, stream = K5_CASES[case]
+    _, planes, lines = paper_grids(dev, g, tables)
+    xyz = sample_points(dev, g, n, stream)
+    cot = torch.randn(n, sum(N_COMP), generator=g, device=dev)
+    return planes, lines, triplane.pack_grids(planes, lines), xyz, cot
+
+
+def k6_inputs(dev, g, case):
+    """(idx [N] int32, rows [N, 2C], D) of one ``K6_CASES`` entry: uniform
+    row indices, or the packed line rows that the ray-ordered points
+    read."""
+    import torch
+
+    from evdeblurnerf_torch.models.voxnerf import compute_grid_size
+    from evdeblurnerf_torch.ops import fused_sample, triplane
+
+    tables, proj, n, stream = K6_CASES[case]
+    grid = compute_grid_size(AABB[0], AABB[1], N_VOXELS[tables])
+    D = int(grid[triplane.VEC_MODE[proj]])
+    if stream == "uniform":
+        idx = torch.randint(0, D, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+    else:
+        sizes = [(2, 2, int(grid[triplane.VEC_MODE[i]])) for i in range(3)]
+        idx = fused_sample.line_base_index(
+            sample_points(dev, g, n, stream), sizes)[proj].contiguous()
+    rows = torch.randn(n, 2 * N_COMP[proj], generator=g, device=dev)
+    return idx, rows, D
+
+
+def time_k5(timing, planes, lines, packed, xyz, cot):
+    """The wrapper's back-to-back ms and its device ms split into K5's
+    kernel, K6's kernels and the rest."""
+    from evdeblurnerf_torch.ops import fused_sample
+
+    def call():
+        return fused_sample.triplane_features_bwd(planes, lines, packed, xyz,
+                                                  cot)
+
+    parts = timing.device_ms_by_name(call, (K5_KERNEL, K6_KERNEL))
+    return dict(ms=timing.cuda_ms(call, iters=10, warmup=2),
+                device_ms=parts[K5_KERNEL], k6_device_ms=parts[K6_KERNEL],
+                glue_device_ms=parts["other"])
+
+
+def time_k6(timing, idx, rows, D):
+    """``line_grad`` back to back, its kernel alone (without the memset of
+    the output), and the one PyTorch call for the function."""
+    import torch
+
+    from evdeblurnerf_torch.ops import line_matmul
+
+    def call():
+        return line_matmul.line_grad(idx, rows, D)
+
+    idx64 = idx.clamp(0, D - 1).long()
+    W = rows.shape[1]
+    return dict(
+        ms=timing.cuda_ms(call),
+        device_ms=timing.device_ms_by_name(call, (K6_KERNEL,))[K6_KERNEL],
+        library_ms=timing.cuda_ms(lambda: torch.zeros(
+            D, W, device=rows.device).index_add_(0, idx64, rows)))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--checkout", metavar="DIR", default=os.path.dirname(TOOLS),
                     help="the directory that holds the evdeblurnerf_torch "
                     "to time (default: this checkout)")
+    ap.add_argument("--kernels", default="k7,k1",
+                    help="comma-separated choice of k7, k1, k5, k6 "
+                    "(default: k7,k1)")
     ap.add_argument("--skip-k7", action="store_true",
-                    help="time K1 and torch.gather only")
+                    help="leave K7 out of the choice")
     opts = ap.parse_args(argv)
+    chosen = set(opts.kernels.lower().split(","))
+    if chosen - {"k7", "k1", "k5", "k6"}:
+        ap.error(f"--kernels takes k7, k1, k5, k6, got {opts.kernels}")
+    if opts.skip_k7:
+        chosen.discard("k7")
 
     import torch
 
@@ -74,7 +227,7 @@ def main(argv=None):
         timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; evdeblurnerf_torch of {checkout}", flush=True)
 
-    if not opts.skip_k7:
+    if "k7" in chosen:
         plane, fu, fv = bench.make_inputs(dev)
         H, W, C = plane.shape
         for TH, TW in bench.TILES:
@@ -88,7 +241,23 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     g = torch.Generator(device=dev).manual_seed(0)
-    for R, S in K1_SHAPES:
+    for case in K5_CASES if "k5" in chosen else ():
+        t = time_k5(timing, *k5_inputs(dev, g, case))
+        print(f"K5 {case} {K5_CASES[case]}: wrapper back to back "
+              f"{t['ms']:.4f} ms; device: K5 kernel {t['device_ms']:.4f} ms, "
+              f"K6 kernels {t['k6_device_ms']:.4f} ms, glue "
+              f"{t['glue_device_ms']:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    for case in K6_CASES if "k6" in chosen else ():
+        idx, rows, D = k6_inputs(dev, g, case)
+        t = time_k6(timing, idx, rows, D)
+        print(f"K6 {case} (D = {D}, W = {rows.shape[1]}, N = "
+              f"{rows.shape[0]}, {K6_CASES[case][3]}): back to back "
+              f"{t['ms']:.4f} ms, kernel device {t['device_ms']:.4f} ms, "
+              f"index_add_ {t['library_ms']:.4f} ms", flush=True)
+        del idx, rows
+        torch.cuda.empty_cache()
+    for R, S in K1_SHAPES if "k1" in chosen else ():
         x = torch.randn(R, S, generator=g, device=dev)
         _, perm, inv = lane_shuffle.sort_with_perm(
             torch.rand(R, S, generator=g, device=dev))

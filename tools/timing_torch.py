@@ -6,6 +6,8 @@ back. A kernel of a few microseconds finishes before the host has queued
 the next call, so that mean follows the host; :func:`device_and_host`
 reads such a kernel's own duration on the device, with its inputs warm in
 L2 and after an L2 flush, and the host's cost per call apart.
+:func:`device_ms_by_name` splits the device time of a call that launches
+several kernels by kernel name.
 """
 
 import time
@@ -31,26 +33,68 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _kernel_durations_us(fn, iters, between=None):
-    """Durations in microseconds of the device activities of ``iters``
-    calls of ``fn`` as ``torch.profiler`` (CUPTI) records them, memory
-    copies left out; ``between`` runs before every call."""
+PROFILE_ATTEMPTS = 3
+
+
+def _device_activities(fn, iters, between=None):
+    """(name, microseconds) of every device activity of ``iters`` calls of
+    ``fn`` as ``torch.profiler`` (CUPTI) records them; ``between`` runs
+    before every call. A trace now and then loses records, all of them or
+    a part (seen on the first trace of a process, while CUPTI attaches).
+    ``fn`` launches the same work on every call, so a whole trace holds a
+    multiple of ``iters`` records: a trace that is empty or holds another
+    number is taken again, ``PROFILE_ATTEMPTS`` times in all, and then the
+    longest one is returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if between is not None:
-                between()
-            fn()
+    best = []
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    return [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(("Memcpy", "Memset"))]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        acts = [(e.name, e.time_range.end - e.time_range.start)
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        if len(acts) > len(best):
+            best = acts
+        if acts and len(acts) % iters == 0:
+            break
+    return best
+
+
+def _kernel_durations_us(fn, iters, between=None):
+    """Durations in microseconds of the kernels of ``iters`` calls of
+    ``fn``, memory copies and memsets left out."""
+    return [us for name, us in _device_activities(fn, iters, between)
+            if not name.startswith(("Memcpy", "Memset"))]
+
+
+def device_ms_by_name(fn, names, iters=10, warmup=2):
+    """Device milliseconds per call of ``fn``, split by kernel: ``{key:
+    ms}`` with one key per entry of ``names`` (the durations of every
+    device activity whose name contains it, summed over ``iters`` traced
+    calls and divided by ``iters``) and ``"other"`` for the rest of the
+    call's device work (memsets, copies, PyTorch's own kernels). For a
+    call that launches several kernels, whose parts the CUDA-event time
+    of the whole call cannot tell apart."""
+    for _ in range(warmup):
+        fn()
+    out = dict.fromkeys((*names, "other"), 0.0)
+    acts = _device_activities(fn, iters)
+    if not acts:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    for name, us in acts:
+        key = next((k for k in names if k in name), "other")
+        out[key] += us / iters / 1e3
+    return out
 
 
 def device_and_host(fn, iters=50, warmup=5):
@@ -84,9 +128,9 @@ def device_and_host(fn, iters=50, warmup=5):
     src = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     dst = torch.empty_like(src)
     cold = _kernel_durations_us(fn, iters, between=lambda: dst.copy_(src))
-    # the profiler now and then drops a record, so the two counts may
-    # differ by a few; a flush that ran as a kernel adds iters
-    if abs(len(cold) - len(warm)) * 10 > len(warm):
+    # the profiler now and then drops records, so the two counts may
+    # differ; a flush that ran as a kernel adds iters to the flushed run
+    if len(cold) - len(warm) >= iters // 2:
         raise RuntimeError(
             f"the flushed run recorded {len(cold)} kernels, the warm run "
             f"{len(warm)}: the L2 flush is not a plain memory copy here")
