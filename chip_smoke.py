@@ -4,8 +4,9 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and the CUDA toolkit (``nvcc``), and exits non-zero, printing no
 result, when either is missing or any check fails. It imports nothing of
-jax and nothing of the JAX package. Phases, one line each (phase 3 one
-per kernel, phase 8 a few):
+jax and nothing of the JAX package. Its training flags, batch and loop
+timer are ``bench_torch.py``'s. Phases, one line each (phase 3 one per
+kernel and case, phase 8 a few):
 
 1. environment: torch/CUDA versions, the card's name and power limit,
    TF32 off;
@@ -14,9 +15,14 @@ per kernel, phase 8 a few):
    shapes the paper's training step gives it (K1 also at the eval
    chunk's): K1 ``permute_lanes`` forward and backward, K2
    ``permute_lanes_3d`` forward and backward, and K3 ``cdf_take`` must be
-   bitwise equal; K4 ``triplane_features`` at N=2,097,152 on coarse- and
-   fine-size packed tables within 1e-6 of the plain output's largest
-   magnitude (both round at the same places); K5 ``triplane_features_bwd``
+   bitwise equal; K4 ``triplane_features`` bitwise equal to its plain
+   version (both round at the same places) in its float4 form and in its
+   scalar form (forced by a table off a 16-byte boundary), at N=2,097,152
+   uniform points on coarse- and fine-size packed tables, at the step's
+   launch sizes, on the ray-ordered stream of one step and at an eval
+   chunk's two launch sizes on Morton-sorted rays, each with the kernel's
+   device time, the plain version's time, the bound and the two traffic
+   floors of the packed tables; K5 ``triplane_features_bwd``
    (with K6 for the line tables) every gradient within 1e-5 of its largest
    magnitude against autograd of the plain sampler, at that N, at the
    step's own launch sizes (1,310,720 points on the fine tables, 655,360
@@ -52,7 +58,8 @@ per kernel, phase 8 a few):
    K5 and K6 case the kernel's own ``device_ms`` (CUPTI durations summed
    by kernel name) stands beside the wrapper's ``ms``, the bound at that
    shape and, for K6, ``index_add_``'s time
-   (``tools/bench_kernel_variants_torch.py`` holds the cases and timers);
+   (``tools/bench_kernel_variants_torch.py`` holds K4's, K5's and K6's
+   cases and timers);
 4. the serving path at the paper width (the model of ``bench.py``: 64+64
    samples, 16.8M/134M-voxel grids, app_n_comp (64, 16, 16), fine width
    256): seeded random weights saved as a reference ``*.tar``, loaded
@@ -88,7 +95,19 @@ per kernel, phase 8 a few):
    every training kernel launched, and the prefetcher's card batches
    equal to the CPU's;
 9. K7's own path, ``tools/bench_tiled_gather_torch.py``, run through its
-   entry point.
+   entry point;
+10. the PBE training step at full width: the paper's grids and widths with
+    ``kernel_type PBE``, 5 pattern points in a window of 10 pixels, 1,024
+    rays, 64+64 samples, the EDI-prior pts0 target on, events off, on the
+    bench batch (its pixel coordinates and poses); 2 warm-up and 5 timed
+    steps; the loss finite and falling, K1, K3, K4 and K5 launched,
+    non-zero gradients on ``kernelsnet.pattern_pos`` and on the coarse
+    grids. Then one DSK step with ``kernel_align_weight 0.1`` and a
+    non-zero align term, and one PBE step at a small size on the card and
+    on the CPU from one state dict, losses within 1e-5 relative;
+11. ``bench_torch.run()`` for ``step_only`` with 5 timed steps: its ms/step
+    within 5% of phase 6's (a reading beyond that is taken again, three
+    times in all: the step follows the shared host).
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -97,7 +116,6 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import functools
 import glob
 import importlib.util
@@ -135,19 +153,19 @@ SERVE_FLAGS = dict(
     fine_app_actfn="none",
     kernel_type="RBK", kernel_feat_cnl=15,
     tone_mapping_type="gamma", tone_mapping_gamma=2.2, chunk=CHUNK)
-# the training path's flags: configs/evdeblurnerf_blender/
-# tx_blurfactory_evdeblurnerf_ediprior_evcrf.txt (the paper's full method)
-# parsed by the port's own parser, with the two overrides that make the
-# blur kernel and the learned CRF live from step 0 (1200 in the file)
-PAPER_CONFIG = ("configs/evdeblurnerf_blender/"
-                "tx_blurfactory_evdeblurnerf_ediprior_evcrf.txt")
-PAPER_OVERRIDES = dict(kernel_start_iter=0, tone_mapping_start_learn_iter=0)
+# the training path's flags and batch are bench_torch.py's (the paper's
+# configuration file with the blur kernel and the learned CRF live from
+# step 0): train_args() and make_train_batch() below
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
 NUM_IMAGES = 30         # bench.py's scene
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 AB_RAYS, AB_EV_RAYS = 64, 64
-K4_REL_TOL = 1e-6
+PBE_FLAGS = dict(kernel_type="PBE", kernel_ptnum=5, kernel_hwindow=10,
+                 kernel_use_awp=False, use_events=False, add_event_egm=False)
+PBE_CPU_TOL = 1e-5      # phase 10: the small PBE step's loss, card vs CPU
+BENCH_STEP_TOL = 0.05   # phase 11: bench_torch's step against phase 6's
+BENCH_STEP_TRIES = 3
 # K6's path: a sampler backward whose 64-component line (grid z) is too
 # tall for K5 to reduce in shared memory (1024 x 68 floats = 272 KiB)
 K6_PATH_GRID, K6_PATH_POINTS = (40, 36, 1024), 262_144
@@ -410,10 +428,8 @@ def phase_kernels(dev):
 
     # K4 forward and K5 backward (with K6 for the line tables) at the cases
     # of tools/bench_kernel_variants_torch.py: 2,097,152 uniform points on
-    # the coarse and fine tables (K4 is timed there), the step's own launch
-    # sizes, and the ray-ordered stream of one step. The wrapper
-    # triplane_features_bwd launches K5's kernel, one K6 kernel and
-    # PyTorch glue, so its back-to-back ms is split by kernel name
+    # the coarse and fine tables, the step's own launch sizes, the
+    # ray-ordered stream of one step and, for K4, an eval chunk's launches
     bench = _load_tool("bench_kernel_variants_torch")
     timing = _load_tool("timing_torch")
     paper = train_args()
@@ -422,8 +438,88 @@ def phase_kernels(dev):
           and list(bench.N_COMP) == list(paper.fine_app_n_comp)
           and bench.AABB == AABB,
           "tools/bench_kernel_variants_torch.py is not at the paper's tables")
-    k4 = _kernel_entry("fused_sample.cu",
-                       "evdeblurnerf_tpu/ops/fused_sample.py:92", 0.0, 0, 0)
+
+    def sampler_bytes(planes, lines, n):
+        # xyz and the touched table cells read, [N, 96] read or written (the
+        # neighbour-packed tables hold each cell several times; the
+        # function's data is the raw grids, so those cap the count)
+        n_ch = sum(p.shape[0] for p in planes)
+        return (4 * n * (3 + n_ch)
+                + sum(_touched_bytes(p, n, 4) for p in planes)
+                + sum(_touched_bytes(ln, n, 2) for ln in lines)), n_ch
+
+    # K4: ms is the back-to-back time of the wrapper, device_ms the kernel's
+    # own; both forms of the kernel bitwise equal to the plain version. Per
+    # point and channel 4 + 2 slot products, their sums and plane x line
+    k4 = _kernel_entry(
+        "fused_sample.cu", "evdeblurnerf_tpu/ops/fused_sample.py:92", 0.0, 0,
+        0, cases={},
+        floors="packed-table traffic over the card's memory rate, xyz read "
+        "and the output written once: floor_distinct_ms counts every "
+        "distinct packed row once (an unbounded cache), "
+        "floor_every_point_ms every point's plane rows (no cache: what "
+        "uniform points on tables far above the L2 pay) and the distinct "
+        "line rows")
+    for case, (label, n, stream) in bench.K4_CASES.items():
+        planes, lines, packed, xyz = bench.k4_inputs(dev, g, case)
+        k4_bytes, n_ch = sampler_bytes(planes, lines, n)
+        del planes, lines
+        want = triplane.triplane_features_packed(*packed, xyz)
+        got = fused_sample.triplane_features(*packed, xyz)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K4 {case}: non-finite")
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"K4 {case}: the float4 kernel "
+              f"differs from the plain version by {err:.3e}")
+        del got
+        # the scalar form: the same tables with plane 1 moved 4 bytes off
+        # its 16-byte boundary
+        pp, pl, sizes = packed
+        buf = torch.empty(pp[1].numel() + 1, device=dev)
+        shifted = buf[1:].view(pp[1].shape).copy_(pp[1])
+        off = ([pp[0], shifted, pp[2]], pl, sizes)
+        check(fused_sample._k4_mode(bench.N_COMP, (*pp, *pl))
+              == fused_sample.K4_FLOAT4
+              and fused_sample._k4_mode(bench.N_COMP, (*off[0], *pl))
+              == fused_sample.K4_SCALAR, "K4's wrapper chose the wrong form")
+        got = fused_sample.triplane_features(*off, xyz)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K4 {case}: the scalar kernel "
+              "differs from the plain version")
+        del got, want
+        rec = _timed(bench.time_k4, timing, packed, xyz)
+        rec["scalar_device_ms"] = _timed(
+            timing.device_ms_by_name,
+            lambda: fused_sample.triplane_features(*off, xyz),
+            (bench.K4_KERNEL,))[bench.K4_KERNEL]
+        del off, shifted, buf
+        rec["plain_ms"] = cuda_ms(
+            lambda: triplane.triplane_features_packed(*packed, xyz), 3, 1)
+        traffic = bench.k4_traffic(packed, xyz)
+        rec.update(tables=label, points=n, stream=stream, max_abs_err=err,
+                   bytes=k4_bytes, bound_ms=1e3 * k4_bytes / HBM_BYTES_PER_S,
+                   floor_distinct_ms=1e3 * traffic["distinct"]
+                   / HBM_BYTES_PER_S,
+                   floor_every_point_ms=1e3 * traffic["every_point"]
+                   / HBM_BYTES_PER_S)
+        if case.startswith("bench_"):
+            rec["ms"], rec["plain_ms"] = ab_ms(
+                lambda: triplane.triplane_features_packed(*packed, xyz),
+                lambda: fused_sample.triplane_features(*packed, xyz))
+            k4[f"ms_{label}"] = rec["ms"]
+            k4[f"plain_ms_{label}"] = rec["plain_ms"]
+        if case == "bench_fine":
+            k4.update(ms=rec["ms"], plain_ms=rec["plain_ms"],
+                      device_ms=rec["device_ms"])
+            _set_bound(k4, k4_bytes, 11 * n_ch * n)
+        k4["cases"][case] = rec
+        del packed, pp, pl, xyz
+        torch.cuda.empty_cache()
+    results["triplane_features"] = k4
+
+    # K5: the wrapper triplane_features_bwd launches K5's kernel, one K6
+    # kernel and PyTorch glue, so its back-to-back ms is split by kernel
+    # name
     k5 = _kernel_entry(
         "fused_sample.cu", "evdeblurnerf_tpu/ops/fused_sample.py:112", 0.0, 0,
         0, max_rel_err=0.0, cases={},
@@ -435,43 +531,14 @@ def phase_kernels(dev):
         "PyTorch part")
     for case, (label, n, stream) in bench.K5_CASES.items():
         planes, lines, packed, xyz, cot = bench.k5_inputs(dev, g, case)
-        n_ch = sum(p.shape[0] for p in planes)
-        # xyz and the touched table rows read, [N, 96] written; per point
-        # and channel 4 + 2 slot products, their sums and plane x line
-        # (the neighbour-packed tables hold each cell several times; the
-        # function's data is the raw grids, so those cap the count)
-        rows_bytes = (sum(_touched_bytes(p, n, 4) for p in planes)
-                      + sum(_touched_bytes(ln, n, 2) for ln in lines))
-        k4_bytes = 4 * n * (3 + n_ch) + rows_bytes
         # K5 reads xyz, the cells and the cotangent, and writes the three
         # plane gradients, the three [C, D] line gradients and d(xyz);
         # the per-point line-row cotangents between it and K6 are scratch
-        k5_bytes = (4 * n * (3 + n_ch) + rows_bytes
-                    + 4 * sum(p.numel() for p in planes)
-                    + 4 * sum(ln.numel() for ln in lines) + 4 * n * 3)
-        k4_flops, k5_flops = 11 * n_ch * n, 40 * n_ch * n
+        k5_bytes, n_ch = sampler_bytes(planes, lines, n)
+        k5_bytes += (4 * sum(p.numel() for p in planes)
+                     + 4 * sum(ln.numel() for ln in lines) + 4 * n * 3)
+        k5_flops = 40 * n_ch * n
         at_bench = case.startswith("bench_")
-        if at_bench:
-            got = fused_sample.triplane_features(*packed, xyz)
-            want = triplane.triplane_features_packed(*packed, xyz)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), f"K4 {label}: non-finite")
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            check(err <= K4_REL_TOL * scale,
-                  f"K4 {label}: max |kernel - plain| {err:.3e} exceeds "
-                  f"{K4_REL_TOL} x {scale:.3e}")
-            del got, want
-            ms, plain_ms = ab_ms(
-                lambda: triplane.triplane_features_packed(*packed, xyz),
-                lambda: fused_sample.triplane_features(*packed, xyz))
-            k4["max_abs_err"] = max(k4["max_abs_err"], err)
-            k4[f"ms_{label}"], k4[f"plain_ms_{label}"] = ms, plain_ms
-            k4[f"grid_{label}"] = [planes[0].shape[2], planes[0].shape[1],
-                                   lines[0].shape[1]]
-            if label == "fine":
-                k4["ms"], k4["plain_ms"] = ms, plain_ms
-                _set_bound(k4, k4_bytes, k4_flops)
 
         got = fused_sample.triplane_features_bwd(planes, lines, packed, xyz,
                                                  cot)
@@ -514,7 +581,6 @@ def phase_kernels(dev):
         k5["cases"][case] = rec
         del feats, leaves, pk, packed, planes, lines, xyz, cot
         torch.cuda.empty_cache()
-    results["triplane_features"] = k4
     results["triplane_features_bwd"] = k5
 
     # K6 alone, one table a launch, at the fine and coarse 64-component
@@ -616,12 +682,23 @@ def phase_kernels(dev):
     return results
 
 
-_STREAMS = dict(uniform="uniform", rays="ray-ordered")
+_STREAMS = dict(uniform="uniform", rays="ray-ordered",
+                eval_rays="ray-ordered (eval chunk)")
 
 
 def _case_line(c):
-    """One K5 or K6 case: the wrapper's back-to-back ms beside the
+    """One K4, K5 or K6 case: the wrapper's back-to-back ms beside the
     kernel's own device ms, the bound and the library call."""
+    if "floor_distinct_ms" in c:       # K4
+        return (f"{c['points']} {_STREAMS[c['stream']]} points, "
+                f"{c['tables']} tables: kernel device {c['device_ms']:.4f} ms "
+                f"(scalar form {c['scalar_device_ms']:.4f} ms), back to back "
+                f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms; library "
+                f"call none; bound {c['bound_ms']:.4f} ms ({c['bytes']} "
+                f"bytes); packed-table traffic floors: distinct rows "
+                f"{c['floor_distinct_ms']:.4f} ms, every point's rows "
+                f"{c['floor_every_point_ms']:.4f} ms; both forms bitwise "
+                "equal to the plain version")
     if "tables" in c:       # K5
         return (f"{c['points']} {_STREAMS[c['stream']]} points, "
                 f"{c['tables']} tables: "
@@ -862,51 +939,25 @@ def phase_card_vs_cpu(dev, renderer, sd):
                 flips=int(flips.sum()))
 
 
-def train_args(**overrides):
-    """The paper configuration through the port's parser, with
-    ``PAPER_OVERRIDES`` and then ``overrides`` as command-line flags over
-    the file, and the event thresholds resolved."""
-    from evdeblurnerf_torch import config
+@functools.cache
+def _bench_torch():
+    """``bench_torch.py`` beside this file, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch", os.path.join(REPO, "bench_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    argv = ["--config", os.path.join(REPO, PAPER_CONFIG)]
-    for k, v in {**PAPER_OVERRIDES, **overrides}.items():
-        argv += [f"--{k}", str(v)]
-    return config.resolve_event_thresholds(config.parse_args(argv))
+
+def train_args(**overrides):
+    """bench_torch.py::train_args: the paper configuration through the
+    port's parser, kernel and CRF live from step 0, then ``overrides``."""
+    return _bench_torch().train_args(**overrides)
 
 
 def make_train_batch(dev, n_rand, events_n_rand):
-    """bench.py's synthetic batch (numpy seed 0) plus a uniform EDI-prior
-    target ``rgbsf_pts0``, as tensors on ``dev``."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(0)
-
-    def make_rays(n, seed):
-        r = np.random.default_rng(seed)
-        o = r.normal(size=(n, 3)).astype(np.float32) * 0.05
-        d = r.normal(size=(n, 3)).astype(np.float32)
-        d[:, 2] = -np.abs(d[:, 2]) - 0.5
-        return np.stack([o, d], axis=-1)
-
-    batch = {
-        "rays": make_rays(n_rand, 0),
-        "rays_x": rng.uniform(0, W, n_rand).astype(np.float32),
-        "rays_y": rng.uniform(0, H, n_rand).astype(np.float32),
-        "images_idx": rng.integers(0, NUM_IMAGES, n_rand).astype(np.int32),
-        "rgbsf": rng.uniform(0, 1, (n_rand, 3)).astype(np.float32),
-    }
-    ev_batch = {
-        "events_rays_start": make_rays(events_n_rand, 1),
-        "events_rays_end": make_rays(events_n_rand, 2),
-        "events_pos_pol_cumsum":
-            rng.integers(0, 3, events_n_rand).astype(np.float32),
-        "events_neg_pol_cumsum":
-            -rng.integers(0, 3, events_n_rand).astype(np.float32),
-    }
-    batch["rgbsf_pts0"] = rng.uniform(0, 1, (n_rand, 3)).astype(np.float32)
-    return ({k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
-            {k: torch.from_numpy(v).to(dev) for k, v in ev_batch.items()})
+    """bench_torch.py::make_train_batch."""
+    return _bench_torch().make_train_batch(dev, n_rand, events_n_rand)
 
 
 def _param_group(name):
@@ -968,7 +1019,7 @@ def phase_train(dev, card):
         check(any(flags), f"no parameter of {group} changed in "
               f"{TRAIN_WARMUP + TRAIN_STEPS} steps")
     rate = n_rays * TRAIN_STEPS / secs
-    print(f"[6 train] paper step ({PAPER_CONFIG}, kernel and CRF live from "
+    print(f"[6 train] paper step ({_bench_torch().PAPER_CONFIG}, kernel and CRF live from "
           f"step 0, grad_accum {args.grad_accum}): {n_rays} rays/step, "
           f"{TRAIN_STEPS} steps in {secs:.3f} s = {rate:.1f} train rays/s "
           f"({1e3 * secs / TRAIN_STEPS:.1f} ms/step) on {card}; peak "
@@ -1081,58 +1132,6 @@ def _read_png(path):
     return raw[:, 1:].reshape(h, w, 3)
 
 
-@contextlib.contextmanager
-def _loop_timings(tloop):
-    """Times of one ``train`` call, taken from outside the loop: for the
-    length of the block the functions that ``train/loop.py`` calls by
-    their module names are wrapped. Yields a dict that fills as the run
-    goes: host-clock seconds per call of ``build_datasets`` (with the EDI
-    prior), ``build_model``, ``build_initial_state`` (with the CRF
-    pre-fit), ``run_test_renders`` and ``CheckpointManager.save``;
-    ``step_call_s``, the host's seconds inside each call of the train
-    step (the device may still be running it); and ``step_events``, one
-    CUDA timing event per step, recorded on the compute stream after the
-    step's work: the time between two of them is the loop's time on the
-    device's own clock, host stalls included."""
-    import torch
-
-    tm = {}
-
-    def timed(fn, key):
-        def wrapper(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            tm.setdefault(key, []).append(time.perf_counter() - t0)
-            return out
-        return wrapper
-
-    def build_train_step(args):
-        step = timed(saved["build_train_step"](args), "step_call_s")
-
-        def marked(*a, **kw):
-            out = step(*a, **kw)
-            mark = torch.cuda.Event(enable_timing=True)
-            mark.record()
-            tm.setdefault("step_events", []).append(mark)
-            return out
-        return marked
-
-    names = ("build_datasets", "build_model", "build_initial_state",
-             "run_test_renders", "build_train_step")
-    saved = {n: getattr(tloop, n) for n in names}
-    save = tloop.CheckpointManager.save
-    try:
-        for n in names[:-1]:
-            setattr(tloop, n, timed(saved[n], f"{n}_s"))
-        tloop.build_train_step = build_train_step
-        tloop.CheckpointManager.save = timed(save, "checkpoint_s")
-        yield tm
-    finally:
-        for n in names:
-            setattr(tloop, n, saved[n])
-        tloop.CheckpointManager.save = save
-
-
 def _metric_stream(path, first_line=0):
     """({tag: [(step, value)]}, number of lines) of a ``metrics.jsonl``
     from line ``first_line`` on."""
@@ -1174,7 +1173,8 @@ def phase_loop(dev, card, step_only):
             merged = dict(datadir=scene, basedir=logs, tbdir=logs,
                           expname="loop", no_wandb=True, i_video=10 ** 9,
                           **extra)
-            argv = ["--config", os.path.join(REPO, PAPER_CONFIG)]
+            argv = ["--config", os.path.join(REPO,
+                                             _bench_torch().PAPER_CONFIG)]
             for k, v in merged.items():
                 argv += [f"--{k}", str(v)]
             return argv
@@ -1230,7 +1230,7 @@ def phase_loop(dev, card, step_only):
         # (a) train across the three gates, checkpoint mid-run, testset
         # render at the last step
         kernels.reset_launches()
-        with _loop_timings(tloop) as tm_a:
+        with _bench_torch().loop_timings(tloop) as tm_a:
             state = cli.main(flags(N_iters=LOOP_STEPS_A, i_print=4,
                                    i_tensorboard=4, i_weights=LOOP_CKPT_EVERY,
                                    i_testset=10 ** 9, **LOOP_GATES), **kw)
@@ -1261,7 +1261,7 @@ def phase_loop(dev, card, step_only):
         # reads off the device are at the first and the last step
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        with _loop_timings(tloop) as tm_b:
+        with _bench_torch().loop_timings(tloop) as tm_b:
             state = cli.main(flags(N_iters=LOOP_STEPS_A + LOOP_STEPS_B,
                                    i_print=10 ** 9,
                                    i_tensorboard=LOOP_STEPS_A,
@@ -1283,10 +1283,10 @@ def phase_loop(dev, card, step_only):
         losses += stream_b["train/loss"]
         check(all(math.isfinite(v) for _, v in losses),
               f"non-finite loss: {losses}")
-        marks = tm_b["step_events"]
+        marks = tm_b["step_marks"]
         check(len(marks) == LOOP_STEPS_B, f"{len(marks)} step marks")
         timed = LOOP_STEPS_B - 1 - LOOP_WARMUP_B
-        loop_ms = marks[LOOP_WARMUP_B].elapsed_time(marks[-1]) / timed
+        loop_ms = marks[LOOP_WARMUP_B].ms_until(marks[-1]) / timed
         host_ms = 1e3 * sum(tm_b["step_call_s"][LOOP_WARMUP_B + 1:]) / timed
         del state
         torch.cuda.empty_cache()
@@ -1328,7 +1328,7 @@ def phase_loop(dev, card, step_only):
     rays = step_only["rays_per_step"]
     rate = rays / (loop_ms / 1e3)
     step_ms = 1e3 * step_only["seconds"] / TRAIN_STEPS
-    print(f"[8 loop] {PAPER_CONFIG} through cli.main on {card}: (a) "
+    print(f"[8 loop] {_bench_torch().PAPER_CONFIG} through cli.main on {card}: (a) "
           f"{LOOP_STEPS_A} steps across {LOOP_GATES}, checkpoints {ckpts}, "
           f"testset render; (b) resumed at step {first_step} with lr "
           f"{first_lr:.6g}, {LOOP_STEPS_B} steps; (c) render-only images "
@@ -1367,6 +1367,160 @@ def phase_bench_entry():
     return n
 
 
+def _train_state(args, device, h, w, focal, num_images, gen=None, sd=None):
+    """(model, state) for ``args`` on ``device``, without the CRF pre-fit;
+    weights drawn from ``gen`` or loaded from the state dict ``sd``."""
+    import torch
+
+    from evdeblurnerf_torch.train import state as tstate
+
+    model, crf = tstate.build_model(args, AABB, h, w, focal, NEAR, FAR,
+                                    num_images, gen, device)
+    if sd is not None:
+        model.load_state_dict(sd)
+    return model, tstate.create_train_state(
+        model, crf, args, gen or torch.Generator(device=device),
+        crf_identity_prefit=False)
+
+
+def phase_pbe(dev, card):
+    """Phase 10 (module docstring): the PBE training step at full width,
+    one DSK step, and a small PBE step on the card against the CPU."""
+    import torch
+
+    from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.train import step as tstep
+
+    args = train_args(**PBE_FLAGS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model, state = _train_state(args, dev, H, W, FOCAL, NUM_IMAGES, gen)
+    step = tstep.build_train_step(args)
+    sw_of = tstep.schedule_weights_fn(args, events_active=False)
+    batch, _ = make_train_batch(dev, args.N_rand, args.events_N_rand)
+    check(sw_of(1).use_pts0_target and sw_of(1).w_pts0 > 0
+          and sw_of(1).w_img == 1.0,
+          "the EDI-prior pts0 target is off in the PBE step")
+
+    def one(fn=step):
+        return fn(state, batch, None, sw_of(state.step), False, False)
+
+    losses = [float(one()["loss"]) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    timed = [one()["loss"] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses += [float(v) for v in timed]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    # step 0 has another ladder (blur_loss_after 0: the pts0 terms alone)
+    check(losses[-1] < losses[1], f"the PBE loss did not fall: {losses}")
+    for name in ("permute_lanes", "permute_lanes_bwd", "cdf_take",
+                 "triplane_features", "triplane_features_bwd"):
+        check(launches[name] > 0, f"kernel {name} never launched in the PBE "
+              "step")
+    # one more step for its gradients: through tanh * hwindow into the
+    # pattern, and through the stage-0 features into the coarse field
+    aux = one(tstep.build_train_step(args, return_grads=True))
+    gmax = {n: float(g.abs().max()) for n, g in aux["grads"].items()
+            if n == "kernelsnet.pattern_pos"
+            or n.startswith(("mlp_coarse.app_plane", "mlp_coarse.app_line"))}
+    check(len(gmax) == 7 and all(v > 0 for v in gmax.values()),
+          f"zero or missing gradients in the PBE step: {gmax}")
+    check(float(aux["pts0_loss"]) > 0, "the PBE step's pts0 loss is off")
+    # rendered rays: every pattern point through stage 0 (coarse only) and
+    # through the c2f render
+    n_rays = args.N_rand * args.kernel_ptnum * 2
+    rate = n_rays * TRAIN_STEPS / secs
+    print(f"[10 pbe] PBE step at the paper's width (ptnum "
+          f"{args.kernel_ptnum}, hwindow {args.kernel_hwindow}, "
+          f"{args.N_rand} rays, EDI-prior pts0 target on, events off): "
+          f"{TRAIN_STEPS} steps in {secs:.3f} s = "
+          f"{1e3 * secs / TRAIN_STEPS:.1f} ms/step, {rate:.1f} train rays/s "
+          f"counting {args.N_rand} x {args.kernel_ptnum} x 2 stages as "
+          f"rendered rays, on {card}; peak {peak_gib:.2f} GiB; losses "
+          f"{[round(v, 6) for v in losses]}; launches per step "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }; "
+          f"largest |gradient| {gmax}")
+    pbe = dict(ms_per_step=1e3 * secs / TRAIN_STEPS, rays_per_s=rate,
+               peak_gib=peak_gib, losses=losses, launches=launches)
+    del model, state, aux, batch
+    torch.cuda.empty_cache()
+
+    # one DSK step with the align term
+    args = train_args(**{**PBE_FLAGS, "kernel_type": "DSK",
+                         "kernel_align_weight": 0.1})
+    model, state = _train_state(args, dev, H, W, FOCAL, NUM_IMAGES, gen)
+    batch, _ = make_train_batch(dev, args.N_rand, args.events_N_rand)
+    sw = tstep.schedule_weights_fn(args, events_active=False)(0)
+    aux = tstep.build_train_step(args)(state, batch, None, sw, False, False)
+    align = float(aux["align_loss"])
+    check(sw.w_align == 0.1 and math.isfinite(align) and align > 0
+          and math.isfinite(float(aux["loss"])),
+          f"DSK step: align {align}, weight {sw.w_align}, loss "
+          f"{float(aux['loss'])}")
+    print(f"[10 pbe] one DSK step at the same width, kernel_align_weight "
+          f"0.1: loss {float(aux['loss']):.6f}, align {align:.6f}")
+    del model, state, aux, batch
+    torch.cuda.empty_cache()
+
+    # the PBE step at a small size, card against CPU from one state dict
+    bt = _bench_torch()
+    args = train_args(**{**bt.TINY, **PBE_FLAGS, "perturb": 0.0,
+                         "raw_noise_std": 0.0, "kernel_random_hwindow": 0.0})
+    size = (bt.TINY_H, bt.TINY_W, bt.TINY_FOCAL)
+    sw = tstep.schedule_weights_fn(args, events_active=False)(0)
+    sd, out = None, []
+    for device in (dev, torch.device("cpu")):
+        model, state = _train_state(
+            args, device, *size, NUM_IMAGES,
+            torch.Generator(device=dev).manual_seed(SEED) if sd is None
+            else None, sd)
+        if sd is None:
+            sd = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        batch, _ = make_train_batch(device, args.N_rand, args.events_N_rand)
+        out.append(float(tstep.build_train_step(args)(
+            state, batch, None, sw, False, False)["loss"]))
+        del model, state
+    rel = abs(out[0] - out[1]) / abs(out[1])
+    print(f"[10 pbe] small PBE step ({args.N_rand} rays x "
+          f"{args.kernel_ptnum}, {args.N_samples}+{args.N_importance} "
+          f"samples), card vs CPU from one state dict: loss {out[0]:.7g} vs "
+          f"{out[1]:.7g} (rel {rel:.2e})")
+    check(rel <= PBE_CPU_TOL, f"the small PBE step's loss differs by "
+          f"{rel:.2e} relative between card and CPU")
+    pbe["small_rel_loss"] = rel
+    return pbe
+
+
+def phase_bench_torch(step_only):
+    """Phase 11: ``bench_torch.run()`` for ``step_only``, against phase
+    6's time for the same step. The step is bound by the host's dispatch
+    and the host's cores are shared, so a reading beyond the bound is taken
+    again, ``BENCH_STEP_TRIES`` times in all; every reading is printed."""
+    want = 1e3 * step_only["seconds"] / TRAIN_STEPS
+    readings = []
+    for _ in range(BENCH_STEP_TRIES):
+        result = _bench_torch().run(iters=TRAIN_STEPS, only="step_only")
+        readings.append(result["step_only"]["ms_per_step"])
+        rel = abs(readings[-1] - want) / want
+        if rel <= BENCH_STEP_TOL:
+            break
+    print(f"[11 bench_torch] step_only {readings[-1]:.1f} ms/step, "
+          f"{result['step_only']['train_rays_per_s']:.1f} train rays/s, peak "
+          f"{result['step_only']['peak_gib']:.2f} GiB on {result['card']} "
+          f"(phase 6: {want:.1f} ms/step; differ by {100 * rel:.1f}%; "
+          f"readings {[round(v, 1) for v in readings]})")
+    check(rel <= BENCH_STEP_TOL, f"bench_torch's step_only readings "
+          f"{readings} ms are not within {100 * BENCH_STEP_TOL:.0f}% of "
+          f"phase 6's {want:.1f}")
+    return result
+
+
 def main():
     try:
         import torch
@@ -1377,9 +1531,11 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "evdeblurnerf_torch")):
-        print(f"chip_smoke: no evdeblurnerf_torch package beside {__file__}; "
-              "run it from the root of a checkout", file=sys.stderr)
+    if not (os.path.isdir(os.path.join(REPO, "evdeblurnerf_torch"))
+            and os.path.isfile(os.path.join(REPO, "bench_torch.py"))):
+        print("chip_smoke: no evdeblurnerf_torch package and bench_torch.py "
+              f"beside {__file__}; run it from the root of a checkout",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     try:
@@ -1396,6 +1552,8 @@ def main():
         del sd, crf_sd
         loop_launches, _ = phase_loop(dev, card, step_only)
         bench_launches = phase_bench_entry()
+        phase_pbe(dev, card)
+        phase_bench_torch(step_only)
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                          "evdeblurnerf_tpu")]

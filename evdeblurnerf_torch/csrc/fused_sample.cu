@@ -18,17 +18,32 @@
 //
 // K4. Bound: random row reads from device memory. At the paper width the
 // fine 64-component packed plane is ~373 MB and the coarse one ~93 MB;
-// neither fits the 50 MB L2, so nearly every point pays a fresh row read:
-// 1 KiB of plane row for projection 0 plus 256 B for each of the other two,
-// and the line rows. Arithmetic is ~10 flops per output. Design: one thread
-// per output element (point, channel). The threads of a warp cover
-// consecutive channels of one point, so each of the four (two) slot reads
-// of a row is one coalesced 128-byte access and the output store is
-// coalesced. The per-point scalar work (coordinates, weights, row index) is
-// repeated by each channel's thread: it is a few dozen flops against the
-// memory wait. Sums are written with __fmul_rn/__fadd_rn, which the
-// compiler does not contract into FMAs, so the kernel rounds where the
-// plain PyTorch version (ops/triplane.py::triplane_features_packed) rounds.
+// neither fits the 50 MB L2, so on uniformly random points nearly every
+// point pays a fresh row read: 1 KiB of plane row for projection 0 plus
+// 256 B for each of the other two, and the line rows; the samples of a ray
+// cross few texels, so on a ray-ordered stream neighbouring points find
+// their rows in L1/L2 and what remains is the [N, C0 + C1 + C2] output and
+// the issue rate. Arithmetic is ~10 flops per output. Design: C / 4
+// lanes per point and projection (16 for C = 64, 4 for C = 16), each on
+// four channels: the four plane slots and the two line slots move as
+// 16-byte loads and the result goes out as one 16-byte streaming store
+// (st.cs: it is written once and read next by a GEMM). The per-point scalar
+// work (texel coordinates, slot weights, row indices) is done once a point
+// and projection, by the first 3 x 64 threads of a block for the block's
+// 64 points, and handed to the lanes through shared memory; the block then
+// takes its points through the three projections in turn, several points
+// a warp on the narrow ones, so no lane idles. Sums are written with
+// __fmul_rn/__fadd_rn per component in the plain version's order, which
+// the compiler does not contract into FMAs, so the kernel rounds where the
+// plain PyTorch version (ops/triplane.py::triplane_features_packed) rounds
+// and equals it bitwise. Component counts that are no multiple of 4, or
+// pointers off a 16-byte boundary, take the scalar kernel: one thread per
+// output element (point, channel), 4-byte loads, the scalar work repeated
+// by every channel's thread. The float4 kernel also reads texel-major
+// UNPACKED tables (planes [H * W, C], lines [D, C]: the slots of a row are
+// then two segments of 2C floats a plane and one a line), the layout K5
+// adds its gradients into; that form serves the bench tool's comparison of
+// the two layouts and no model path.
 //
 // K5 replaces evdeblurnerf_tpu/ops/fused_sample.py::_bwd_kernel (Pallas,
 // via _fused_bwd_call), and with it the XLA scatter into the packed layout
@@ -115,6 +130,7 @@ struct Projection {
 struct Tables {
   Projection p[3];
   int ctot;
+  int unpacked;  // K4's float4 kernel only: planes [H * W, C], lines [D, C]
 };
 
 // Base row index and the two slot weights of coordinate f on an axis of
@@ -139,7 +155,7 @@ __device__ __forceinline__ float texel_coord(float x, int size) {
                    static_cast<float>(size - 1));
 }
 
-__global__ void triplane_fwd_kernel(const float* __restrict__ xyz,
+__global__ void triplane_fwd_scalar_kernel(const float* __restrict__ xyz,
                                     const __grid_constant__ Tables t,
                                     float* __restrict__ out, int64_t n) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -173,6 +189,113 @@ __global__ void triplane_fwd_kernel(const float* __restrict__ xyz,
   const float lf = __fadd_rn(__fmul_rn(__ldg(lr + c), q0),
                              __fmul_rn(__ldg(lr + C + c), q1));
   out[g] = __fmul_rn(pf, lf);
+}
+
+// ---- K4 on four channels a lane ----
+
+constexpr int kFwdPoints = 64;  // points a block takes
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// One component of the output, rounded as the plain version rounds.
+__device__ __forceinline__ float feature(float s00, float s01, float s10,
+                                         float s11, float l0, float l1,
+                                         float w00, float w01, float w10,
+                                         float w11, float q0, float q1) {
+  float pf = __fmul_rn(s00, w00);
+  pf = __fadd_rn(pf, __fmul_rn(s01, w01));
+  pf = __fadd_rn(pf, __fmul_rn(s10, w10));
+  pf = __fadd_rn(pf, __fmul_rn(s11, w11));
+  const float lf = __fadd_rn(__fmul_rn(l0, q0), __fmul_rn(l1, q1));
+  return __fmul_rn(pf, lf);
+}
+
+// Lanes a point: the power of two that holds C / 4, at most a warp.
+__device__ __forceinline__ int group_shift(int q4) {
+  int shift = 0;
+  while ((1 << shift) < q4 && shift < 5) ++shift;
+  return shift;
+}
+
+// Every C a multiple of 4, every table and the output on a 16-byte
+// boundary. Thread tid < 3 * 64 prepares point tid % 64 on projection
+// tid / 64; then thread tid works on point tid / G of the block's 64, G the
+// lanes a point of the projection at hand.
+__global__ void __launch_bounds__(evdn::kThreads)
+    triplane_fwd_kernel(const float* __restrict__ xyz,
+                        const __grid_constant__ Tables t,
+                        float* __restrict__ out, int64_t n) {
+  __shared__ int s_texel[3 * kFwdPoints];  // by * W + bx
+  __shared__ int s_row[3 * kFwdPoints];    // bl
+  // the four corner weights and the two line weights
+  __shared__ float s_w[6][3 * kFwdPoints];
+  const int tid = threadIdx.x;
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kFwdPoints;
+  if (tid < 3 * kFwdPoints) {
+    const int i = tid / kFwdPoints;
+    const int64_t pt = p0 + (tid - i * kFwdPoints);
+    if (pt < n) {
+      const Projection& p = t.p[i];
+      const float* q = xyz + pt * 3;
+      float sx0, sx1, sy0, sy1, q0, q1;
+      const int bx =
+          slot_weights(texel_coord(__ldg(q + p.m0), p.W), p.W, &sx0, &sx1);
+      const int by =
+          slot_weights(texel_coord(__ldg(q + p.m1), p.H), p.H, &sy0, &sy1);
+      s_row[tid] =
+          slot_weights(texel_coord(__ldg(q + p.v), p.D), p.D, &q0, &q1);
+      s_texel[tid] = by * p.W + bx;
+      s_w[0][tid] = __fmul_rn(sy0, sx0);
+      s_w[1][tid] = __fmul_rn(sy0, sx1);
+      s_w[2][tid] = __fmul_rn(sy1, sx0);
+      s_w[3][tid] = __fmul_rn(sy1, sx1);
+      s_w[4][tid] = q0;
+      s_w[5][tid] = q1;
+    }
+  }
+  __syncthreads();
+  int off = 0;
+  for (int i = 0; i < 3; ++i) {
+    const Projection& p = t.p[i];
+    const int C = p.C;
+    const int shift = group_shift(C >> 2);
+    const int G = 1 << shift;
+    const int lane = tid & (G - 1);
+    const int groups = evdn::kThreads >> shift;
+    // floats from one row to the next, and from slot (0, 0) to slots
+    // (0, 1), (1, 0), (1, 1) of a plane row and to slot 1 of a line row
+    const int pstride = t.unpacked ? C : 4 * C;
+    const int lstride = t.unpacked ? C : 2 * C;
+    const int o10 = t.unpacked ? p.W * C : 2 * C;
+    for (int pl = tid >> shift; pl < kFwdPoints; pl += groups) {
+      const int64_t pt = p0 + pl;
+      if (pt >= n) break;
+      const int k = i * kFwdPoints + pl;
+      const float w00 = s_w[0][k], w01 = s_w[1][k], w10 = s_w[2][k];
+      const float w11 = s_w[3][k], q0 = s_w[4][k], q1 = s_w[5][k];
+      const float* pr = p.plane + static_cast<int64_t>(s_texel[k]) * pstride;
+      const float* lr = p.line + static_cast<int64_t>(s_row[k]) * lstride;
+      float* o = out + pt * t.ctot + off;
+      for (int c = lane * 4; c < C; c += G * 4) {
+        const float4 s00 = ld4(pr + c), s01 = ld4(pr + C + c);
+        const float4 s10 = ld4(pr + o10 + c), s11 = ld4(pr + o10 + C + c);
+        const float4 l0 = ld4(lr + c), l1 = ld4(lr + C + c);
+        float4 r;
+        r.x = feature(s00.x, s01.x, s10.x, s11.x, l0.x, l1.x, w00, w01, w10,
+                      w11, q0, q1);
+        r.y = feature(s00.y, s01.y, s10.y, s11.y, l0.y, l1.y, w00, w01, w10,
+                      w11, q0, q1);
+        r.z = feature(s00.z, s01.z, s10.z, s11.z, l0.z, l1.z, w00, w01, w10,
+                      w11, q0, q1);
+        r.w = feature(s00.w, s01.w, s10.w, s11.w, l0.w, l1.w, w00, w01, w10,
+                      w11, q0, q1);
+        __stcs(reinterpret_cast<float4*>(o + c), r);
+      }
+    }
+    off += C;
+  }
 }
 
 // d(loss)/d(f) from the two slot-weight cotangents; mirrors
@@ -284,10 +407,6 @@ __global__ void triplane_bwd_scalar_kernel(const float* __restrict__ xyz,
 // ---- K5 on four channels a lane ----
 
 constexpr int kBwdPoints = 64;  // points a block takes
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
 
 __device__ __forceinline__ float4 scale4(float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
@@ -402,13 +521,6 @@ __device__ __forceinline__ void lane_terms(const Projection& p,
   s.b1 += dot4(d_lf, l1);
   *t0 = scale4(d_lf, m.q0);
   *t1 = scale4(d_lf, m.q1);
-}
-
-// Lanes a point: the power of two that holds C / 4, at most a warp.
-__device__ __forceinline__ int group_shift(int q4) {
-  int shift = 0;
-  while ((1 << shift) < q4 && shift < 5) ++shift;
-  return shift;
 }
 
 // The float4 kernel with scratch. Every C a multiple of 4, every pointer
@@ -615,25 +727,34 @@ Tables make_tables(const float* plane0, const float* plane1,
   return Tables{{{plane0, line0, H0, W0, D0, C0, 0, 1, 2},
                  {plane1, line1, H1, W1, D1, C1, 0, 2, 1},
                  {plane2, line2, H2, W2, D2, C2, 1, 2, 0}},
-                C0 + C1 + C2};
+                C0 + C1 + C2, 0};
 }
 
 }  // namespace
 
+// mode 0: the scalar kernel, 1: the float4 kernel, both over the
+// neighbour-packed tables; 2: the float4 kernel over texel-major unpacked
+// tables (plane* [H * W, C], line* [D, C]).
 EVDN_API int evdn_triplane_features(
     const float* xyz, const float* plane0, const float* plane1,
     const float* plane2, const float* line0, const float* line1,
     const float* line2, float* out, int64_t n, int H0, int W0, int D0, int C0,
-    int H1, int W1, int D1, int C1, int H2, int W2, int D2, int C2, int device,
-    cudaStream_t stream) {
+    int H1, int W1, int D1, int C1, int H2, int W2, int D2, int C2, int mode,
+    int device, cudaStream_t stream) {
   EVDN_SET_DEVICE(device);
-  const Tables t = make_tables(plane0, plane1, plane2, line0, line1, line2,
-                               H0, W0, D0, C0, H1, W1, D1, C1, H2, W2, D2,
-                               C2);
-  const int64_t work = n * t.ctot;
-  if (work <= 0) return static_cast<int>(cudaGetLastError());
-  triplane_fwd_kernel<<<evdn::blocks_for(work, evdn::kThreads),
-                        evdn::kThreads, 0, stream>>>(xyz, t, out, n);
+  Tables t = make_tables(plane0, plane1, plane2, line0, line1, line2, H0, W0,
+                         D0, C0, H1, W1, D1, C1, H2, W2, D2, C2);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (mode && (C0 % 4 || C1 % 4 || C2 % 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode) {
+    t.unpacked = mode == 2;
+    triplane_fwd_kernel<<<evdn::blocks_for(n, kFwdPoints), evdn::kThreads, 0,
+                          stream>>>(xyz, t, out, n);
+  } else {
+    triplane_fwd_scalar_kernel<<<evdn::blocks_for(n * t.ctot, evdn::kThreads),
+                                 evdn::kThreads, 0, stream>>>(xyz, t, out, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

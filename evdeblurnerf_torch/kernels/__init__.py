@@ -5,8 +5,9 @@ PyTorch twin beside it:
 
 * ``ops/lane_shuffle.py``: K1 ``permute_lanes`` and its backward launch,
   K2 ``permute_lanes_3d`` forward and backward, K3 ``cdf_take``;
-* ``ops/fused_sample.py``: K4 ``triplane_features`` and K5
-  ``triplane_features_bwd`` (three kernels, chosen by shape);
+* ``ops/fused_sample.py``: K4 ``triplane_features`` (two kernels, chosen
+  by shape and alignment) and K5 ``triplane_features_bwd`` (three kernels,
+  chosen by shape);
 * ``ops/line_matmul.py``: K6 ``line_grad`` and ``line_grad_tables`` (three
   tables in one launch, counted as one ``line_grad``);
 * ``ops/tiled_gather.py``: K7 ``tiled_plane_gather``.

@@ -45,8 +45,9 @@ SIGNATURES = {
     # cdf, bins, below, above, 4 outputs, rows, M, Mb, N, device, stream
     "evdn_cdf_take": (_P,) * 8 + (_L, _I, _I, _I, _I, _P),
     # xyz, 3 packed planes, 3 packed lines, out, n,
-    # (H, W, D, C) x 3 projections, device, stream
-    "evdn_triplane_features": (_P,) * 8 + (_L,) + (_I,) * 12 + (_I, _P),
+    # (H, W, D, C) x 3 projections, mode (0 scalar, 1 float4, 2 float4 over
+    # unpacked tables), device, stream
+    "evdn_triplane_features": (_P,) * 8 + (_L,) + (_I,) * 12 + (_I, _I, _P),
     # xyz, 3 packed planes, 3 packed lines, g, 3 plane grads, 3 line-row
     # grads (fused: the 3 raw line grads), 3 line-row indices, xyz grad, n,
     # (H, W, D, C) x 3 projections, mode (0 scalar, 1 float4, 2 fused),

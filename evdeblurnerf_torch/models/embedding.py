@@ -5,14 +5,17 @@ Counterpart of ``evdeblurnerf_tpu/models/embedding.py``:
 networks/embedding.py:65-115): bands 2^0..2^(m-1), per-band [sin, cos],
 input first; :class:`ViewEmbedding`, the per-image latent table (ref:
 networks/embedding.py:6-32). The JAX package's double-angle encoding serves
-only its bf16 eval chain and is not ported; the table-plus-MLP embedding
-(``param_mlp``) is not ported yet.
+only its bf16 eval chain and is not ported. :class:`ViewEmbeddingMLP` is
+the table followed by a skip-connected MLP (``kernel_img_embed_type
+param_mlp``, ref: networks/embedding.py:35-62).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .layers import make_linear
 
 
 def positional_encoding_dim(multires: int, input_dim: int = 3) -> int:
@@ -53,13 +56,29 @@ class ViewEmbedding(nn.Module):
         return self.img_embed[idx.long()]
 
 
-class ViewEmbeddingMLP(nn.Module):
-    """The table-plus-MLP view embedding (``kernel_img_embed_type
-    param_mlp``, ref: networks/embedding.py:35-62): not ported yet."""
+class ViewEmbeddingMLP(ViewEmbedding):
+    """The latent table followed by ``D`` ReLU layers of width ``W``
+    (``view_embed_linears``), the table's row concatenated in again after
+    every layer whose index is in ``skips`` (ref:
+    networks/embedding.py:35-62). As in the reference the table sits flat on
+    the module (``img_embed``), beside the layers."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__()
-        raise NotImplementedError(
-            "kernel_img_embed_type=param_mlp: the port has the plain "
-            "ViewEmbedding table only; ViewEmbeddingMLP is ROADMAP.md queue "
-            "1 item 9")
+    def __init__(self, num_embed: int, embed_dim: int, D: int, W: int,
+                 skips=(4,), init: str = "zero",
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__(num_embed, embed_dim, init, generator, device)
+        self.skips = tuple(skips)
+        layers, width = [], embed_dim
+        for i in range(D):
+            layers.append(make_linear(width, W, "torch", generator, device))
+            width = W + embed_dim if i in self.skips else W
+        self.view_embed_linears = nn.ModuleList(layers)
+        self.out_channels = width
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        embedded = h = self.img_embed[idx.long()]
+        for i, layer in enumerate(self.view_embed_linears):
+            h = torch.relu(layer(h))
+            if i in self.skips:
+                h = torch.cat([embedded, h], -1)
+        return h

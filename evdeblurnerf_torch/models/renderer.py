@@ -216,6 +216,21 @@ class Renderer(nn.Module):
                                           rays_o, rays_d)
         return rays_o, rays_d, viewdirs
 
+    def _coarse_setup(self, rays_o, rays_d, is_train, generator):
+        """Stratified coarse depths, their world points and the sigma
+        noise: the common preamble of :meth:`render_rays` and
+        :meth:`coarse_render` (two draws from ``generator`` when training:
+        the jitter, then the noise)."""
+        cfg = self.cfg
+        R = rays_o.shape[0]
+        z_vals = self._sample_z(R, rays_o.device,
+                                cfg.perturb if is_train else 0.0, generator)
+        pts = (rays_o[..., None, :]
+               + rays_d[..., None, :] * z_vals[..., :, None])
+        noise = self._noise((R, cfg.N_samples - 1),
+                            cfg.raw_noise_std if is_train else 0.0, generator)
+        return z_vals, pts, noise
+
     def render_rays(self, rays_o, rays_d, viewdirs, is_train=False,
                     generator=None, want_features=False):
         """c2f render of rays [R, 3] (already NDC if applicable).
@@ -232,10 +247,8 @@ class Renderer(nn.Module):
         R = rays_o.shape[0]
         perturb = cfg.perturb if is_train else 0.0
         noise_std = cfg.raw_noise_std if is_train else 0.0
-        z_vals = self._sample_z(R, rays_o.device, perturb, generator)
-        pts = (rays_o[..., None, :]
-               + rays_d[..., None, :] * z_vals[..., :, None])
-        noise_c = self._noise((R, cfg.N_samples - 1), noise_std, generator)
+        z_vals, pts, noise_c = self._coarse_setup(rays_o, rays_d, is_train,
+                                                  generator)
         ft_coarse = self.mlp_coarse.sample(pts)
         rgb0, depth0, acc0, weights, _ = self.mlp_coarse(
             pts, viewdirs, ft_coarse, z_vals, rays_d, noise=noise_c,
@@ -275,6 +288,20 @@ class Renderer(nn.Module):
                                want_features=want_features)
         ret["rays_d"] = rays_d
         return ret
+
+    def coarse_render(self, rays: torch.Tensor, is_train=False,
+                      generator=None):
+        """One coarse pass over rays [R, 3, 2]: (rgb [R, 3], the coarse
+        field's feature). The stage-0 render of the PBE kernel (ref:
+        renderer.py:468-592), whose CRR head composites the geometry
+        features over the ray: feature [R, kernel_feat_cnl]."""
+        rays_o, rays_d, viewdirs = self._unpack_rays(rays)
+        z_vals, pts, noise = self._coarse_setup(rays_o, rays_d, is_train,
+                                                generator)
+        rgb, _, _, _, feature = self.mlp_coarse(
+            pts, viewdirs, self.mlp_coarse.sample(pts), z_vals, rays_d,
+            noise=noise, is_train=is_train)
+        return rgb, feature
 
     def tv_loss(self) -> torch.Tensor:
         """Grid TV regulariser x5 (ref: renderer.py:361-365)."""

@@ -12,7 +12,9 @@ and K5 adds the plane gradients straight into the raw grids' layout.
 :func:`sample_grids` is the differentiable entry point: one
 ``torch.autograd.Function`` whose inputs are xyz and the RAW grids, so
 autograd owns their gradients, while its forward reads the packed tables.
-Its forward is :func:`triplane_features` (K4; plain twin
+Its forward is :func:`triplane_features` (K4, four channels a lane on
+16-byte accesses or, for component counts that are no multiple of 4 and
+tables off a 16-byte boundary, one thread an output element; plain twin
 ``ops/triplane.py::triplane_features_packed``), its backward
 :func:`triplane_features_bwd` (K5, which sums the line gradients itself
 where the line tables fit a block's shared memory and else hands them to
@@ -31,9 +33,11 @@ from .line_matmul import line_grad_tables
 from .triplane import VEC_MODE, pack_grids, triplane_features_packed
 
 
-def _check_tables(name, packed_planes, packed_lines, sizes, xyz):
+def _check_tables(name, packed_planes, packed_lines, sizes, xyz,
+                  slots=(4, 2)):
     """Raise unless the tables and points are what K4/K5 read; returns the
-    (H, W, D, C) x 3 sizes the kernels take."""
+    (H, W, D, C) x 3 sizes the kernels take. ``slots``: neighbours a plane
+    row and a line row hold, (4, 2) packed, (1, 1) unpacked."""
     kernels.check_tensor(f"{name} xyz", xyz, torch.float32, 2)
     if xyz.shape[1] != 3:
         raise ValueError(f"{name}: xyz must be [N, 3], got "
@@ -44,15 +48,55 @@ def _check_tables(name, packed_planes, packed_lines, sizes, xyz):
         plane, line = packed_planes[i], packed_lines[i]
         kernels.check_tensor(f"{name} plane {i}", plane, torch.float32, 2)
         kernels.check_tensor(f"{name} line {i}", line, torch.float32, 2)
-        C = line.shape[1] // 2
-        if (min(H, W, D) < 2 or plane.shape != (H * W, 4 * C)
-                or line.shape != (D, 2 * C)):
+        C = line.shape[1] // slots[1]
+        if (min(H, W, D) < 2 or plane.shape != (H * W, slots[0] * C)
+                or line.shape != (D, slots[1] * C)):
             raise ValueError(
                 f"{name}: projection {i} has sizes {(H, W, D)}, "
                 f"plane {tuple(plane.shape)}, line {tuple(line.shape)}; "
-                "expected plane [H*W, 4C], line [D, 2C], every size >= 2")
+                f"expected plane [H*W, {slots[0]}C], line [D, {slots[1]}C], "
+                "every size >= 2")
         dims += [H, W, D, C]
     return dims
+
+
+# the forms of kernel K4 (csrc/fused_sample.cu)
+K4_SCALAR, K4_FLOAT4, K4_UNPACKED = 0, 1, 2
+
+
+def _k4_mode(Cs, wide) -> int:
+    """Which K4 kernel these shapes take: ``K4_FLOAT4`` (four channels a
+    lane, 16-byte loads and stores) when every component count is a
+    multiple of 4 and every tensor of ``wide`` (the tables, the output)
+    lies on a 16-byte boundary, else ``K4_SCALAR``."""
+    if any(C % 4 for C in Cs) or any(t.data_ptr() % 16 for t in wide):
+        return K4_SCALAR
+    return K4_FLOAT4
+
+
+def _launch_k4(name, planes, lines, sizes, xyz, slots=(4, 2)):
+    tables = (*planes, *lines)
+    if torch.is_grad_enabled() and (xyz.requires_grad or any(
+            t.requires_grad for t in tables)):
+        raise NotImplementedError(
+            f"{name}: K4 is the forward; differentiate through "
+            "sample_grids, whose backward is K5")
+    dims = _check_tables(name, planes, lines, sizes, xyz, slots)
+    Cs = dims[3::4]
+    out = torch.empty((xyz.shape[0], sum(Cs)), dtype=torch.float32,
+                      device=xyz.device)
+    mode = _k4_mode(Cs, (*tables, out))
+    if slots != (4, 2):
+        if mode != K4_FLOAT4:
+            raise ValueError(
+                f"{name}: the unpacked tables are read by K4's float4 "
+                "kernel only: every component count a multiple of 4, every "
+                "table on a 16-byte boundary")
+        mode = K4_UNPACKED
+    kernels.launch("triplane_features", xyz.device, xyz.data_ptr(),
+                   *(t.data_ptr() for t in tables), out.data_ptr(),
+                   xyz.shape[0], *dims, mode)
+    return out
 
 
 def triplane_features(packed_planes: Sequence[torch.Tensor],
@@ -63,27 +107,44 @@ def triplane_features(packed_planes: Sequence[torch.Tensor],
 
     ``packed_planes[i]`` [H_i*W_i, 4C_i] and ``packed_lines[i]``
     [D_i, 2C_i] come from ``ops/triplane.py::pack_grids``, with
-    ``sizes[i] = (H_i, W_i, D_i)``. Kernel K4 on CUDA tensors,
-    :func:`..ops.triplane.triplane_features_packed` on CPU tensors.
+    ``sizes[i] = (H_i, W_i, D_i)``. Kernel K4 on CUDA tensors, in the form
+    :func:`_k4_mode` picks, :func:`..ops.triplane.triplane_features_packed`
+    on CPU tensors.
     """
-    tables = (*packed_planes, *packed_lines)
-    if not kernels.wants_kernel(xyz, *tables):
+    if not kernels.wants_kernel(xyz, *packed_planes, *packed_lines):
         return triplane_features_packed(packed_planes, packed_lines, sizes,
                                         xyz)
-    if torch.is_grad_enabled() and (xyz.requires_grad or any(
-            t.requires_grad for t in tables)):
-        raise NotImplementedError(
-            "triplane_features: K4 is the forward; differentiate through "
-            "sample_grids, whose backward is K5")
-    dims = _check_tables("triplane_features", packed_planes, packed_lines,
-                         sizes, xyz)
-    ctot = sum(dims[3::4])
-    out = torch.empty((xyz.shape[0], ctot), dtype=torch.float32,
-                      device=xyz.device)
-    kernels.launch("triplane_features", xyz.device, xyz.data_ptr(),
-                   *(t.data_ptr() for t in tables), out.data_ptr(),
-                   xyz.shape[0], *dims)
-    return out
+    return _launch_k4("triplane_features", packed_planes, packed_lines,
+                      sizes, xyz)
+
+
+def unpack_grids(planes, lines):
+    """Texel-major unpacked tables of raw grids: planes 3 x [C, H, W] ->
+    [H*W, C], lines 3 x [C, D] -> [D, C], and the sizes (H, W, D) x 3: the
+    layout K5 adds the plane gradients into, a quarter of the packed
+    planes' size."""
+    rows = [p.permute(1, 2, 0).reshape(-1, p.shape[0]).contiguous()
+            for p in planes]
+    sizes = [(p.shape[1], p.shape[2], l.shape[1])
+             for p, l in zip(planes, lines)]
+    return rows, [l.t().contiguous() for l in lines], sizes
+
+
+def triplane_features_unpacked(plane_rows, line_rows, sizes,
+                               xyz: torch.Tensor) -> torch.Tensor:
+    """:func:`triplane_features` over the tables of :func:`unpack_grids`:
+    K4's float4 kernel reads the four corners of a plane as two segments
+    of 2C floats (texels x, x + 1 of rows y and y + 1) and the two line
+    rows as one. A measured variant (``tools/bench_kernel_variants_torch.py
+    --kernels k4``), on no model path. On CPU tensors: the packed sampler
+    over tables packed from these."""
+    if not kernels.wants_kernel(xyz, *plane_rows, *line_rows):
+        planes = [r.reshape(H, W, -1).permute(2, 0, 1)
+                  for r, (H, W, _) in zip(plane_rows, sizes)]
+        return triplane_features_packed(
+            *pack_grids(planes, [r.t() for r in line_rows]), xyz)
+    return _launch_k4("triplane_features_unpacked", plane_rows, line_rows,
+                      sizes, xyz, slots=(1, 1))
 
 
 def line_base_index(xyz: torch.Tensor, sizes) -> list:

@@ -97,7 +97,7 @@ def build_model(args, llff, generator: Optional[torch.Generator] = None,
     """The model and its CRF for a loaded scene (``train/state.py``)."""
     return tstate.build_model(args, llff.bounding_box, llff.h, llff.w,
                               float(llff.K[0][0]), llff.near, llff.far,
-                              llff.n_imgs, generator, device)
+                              llff.n_imgs, generator, device, K=llff.K)
 
 
 def build_initial_state(args, model, crf, generator: torch.Generator,

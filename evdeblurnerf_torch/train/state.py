@@ -34,14 +34,16 @@ class TrainState:
 
 def build_model(args, aabb, H: int, W: int, focal: float, near: float,
                 far: float, num_images: int,
-                generator: torch.Generator | None = None, device=None):
+                generator: torch.Generator | None = None, device=None,
+                K=None):
     """The model and its CRF from flags and the scene's geometry
     (counterpart of the model construction in
-    ``evdeblurnerf_tpu/train/loop.py``).
-    Weights are drawn from ``generator``."""
+    ``evdeblurnerf_tpu/train/loop.py``). ``K``: the scene's [3, 3]
+    intrinsics for the DSK/PBE kernels (default: the centred pinhole of H,
+    W, focal). Weights are drawn from ``generator``."""
     model = EvDeblurNeRF(config_from_args(args, aabb, H, W, focal, near, far),
                          kernel_config_from_args(args), num_images,
-                         generator=generator, device=device)
+                         generator=generator, device=device, K=K)
     crf = TonemappingTransform(
         map_type_rgb=args.tone_mapping_type,
         map_type_event=args.tone_mapping_events_type,

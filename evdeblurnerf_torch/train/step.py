@@ -183,8 +183,10 @@ def build_train_step(args, return_grads: bool = False):
         def enc(x):
             return crf.encode_rgb(x, skip_learn_crf=sw.skip_learn_crf)
 
+        # rays_x, rays_y and poses feed the DSK and PBE kernels only
         rays_info = None if force_naive else {
-            "images_idx": batch["images_idx"]}
+            k: batch[k] for k in ("images_idx", "rays_x", "rays_y", "poses")
+            if k in batch}
         rgb, rgb1, extra_loss, extra_tensor = model.train_forward(
             batch["rays"], rays_info, force_naive, return_pts0_rgb=True,
             generator=gen)
@@ -204,15 +206,23 @@ def build_train_step(args, return_grads: bool = False):
         if "rgbsf_pts0" in batch and sw.use_pts0_target:
             pts0_target = batch["rgbsf_pts0"]
         pts0_loss = torch.zeros((), device=target.device)
-        for name in ("stage1_rgb_pts0", "stage1_rgb1_pts0"):
+        for name in ("stage0_rgb_pts0", "stage1_rgb_pts0",
+                     "stage1_rgb1_pts0"):
             if name in extra_tensor:
                 pts0_loss = pts0_loss + img2mse(enc(extra_tensor[name]),
                                                 pts0_target)
         aux["pts0_loss"] = pts0_loss
+        # reference-literal: the PSNR of a SUM of up to three MSE terms,
+        # what the reference prints while i <= blur_loss_after (ref:
+        # run_nerf.py:488-489)
+        aux["pts0_psnr"] = mse2psnr(pts0_loss)
         loss = sw.loss_a * loss + sw.w_pts0 * pts0_loss
 
         aux["tv_loss"] = torch.mean(extra_loss["TV"])
         loss = loss + aux["tv_loss"] * tv_weight
+        if "align" in extra_loss:
+            aux["align_loss"] = torch.mean(extra_loss["align"])
+            loss = loss + aux["align_loss"] * sw.w_align
 
         if events_active:
             neg = ev_batch["events_neg_pol_cumsum"]

@@ -82,8 +82,9 @@ def _map_leaf(key: str, v: np.ndarray, ve: str):
         name = (f"kernelsnet.{b}_branch.{i}" if i is not None
                 else f"kernelsnet.{b}_linear")
         return f"{name}.{_wb(kb)}", _linear(kb, v)
-    if key == "params/kernelnet/pattern_pos":
-        return "kernelsnet.pattern_pos", v
+    m = re.match(r"^params/kernelnet/(pattern_pos|pattern_trans)$", key)
+    if m:
+        return f"kernelsnet.{m.group(1)}", v
     m = re.match(r"^params/kernelnet/(linears1?)_(\d+)/(kernel|bias)$", key)
     if m:
         # torch Sequential interleaves ReLUs: dense rank j -> index 2j

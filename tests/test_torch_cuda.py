@@ -8,8 +8,10 @@ machine without them; there, skip the repo's conftest (which sets up JAX):
 
 Gathers (K1 and K2, forward and backward, and K3) must be bitwise equal to
 the plain versions. K4 rounds at the same places as its plain twin (no FMA
-contraction), so it is held to 1e-6 of the output's largest magnitude and
-is expected to be exact. K5 and K6 add with atomics, in an order that
+contraction) and must equal it bitwise in each of its forms: the float4
+kernel, the scalar kernel (forced by a component count that is no multiple
+of 4 and by a table off a 16-byte boundary) and the float4 kernel over
+unpacked tables. K5 and K6 add with atomics, in an order that
 changes from run to run, and K5 contracts its products into FMAs: they are
 held to 1e-5 of each gradient's largest magnitude (f32 sums of up to a few
 thousand terms per entry in another order), on uniform and on ray-ordered
@@ -154,26 +156,88 @@ def _tables(dev, g, comps, grid):
     return planes, lines
 
 
-@pytest.mark.parametrize("comps,grid,n", [((8, 4, 4), (19, 17, 13), 5000),
-                                          ((64, 16, 16), (302, 302, 183),
-                                           1 << 20)])
-def test_triplane_kernel_matches_plain(dev, comps, grid, n):
-    g = torch.Generator(device=dev).manual_seed(n)
-    planes, lines = _tables(dev, g, comps, grid)
-    pp, pl, sizes = triplane.pack_grids(planes, lines)
+def _k4_points(dev, g, n, grid):
+    """Uniform points past [-1, 1], the corners, and points exactly on
+    texel boundaries of every axis (f == floor(f)), first and last texel
+    and one outside among them."""
     xyz = torch.rand(n, 3, generator=g, device=dev) * 2.6 - 1.3
     xyz[:6] = torch.tensor([[1.0, 1.0, 1.0], [-1.0, -1.0, -1.0],
                             [1.0, -1.0, 0.0], [-1.05, 1.05, 0.999],
                             [0.0, 0.0, 0.0], [2.0, -3.0, 1.0]], device=dev)
+    m = min(grid) + 2
+    for a, size in enumerate(grid):
+        xyz[6:6 + m, a] = (torch.arange(-1, m - 1, device=dev)
+                           / (size - 1) * 2 - 1)
+    return xyz
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes off a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("comps,grid,n,shift,mode", [
+    ((8, 4, 4), (19, 17, 13), 5000, None, fused_sample.K4_FLOAT4),
+    ((64, 16, 16), (302, 302, 183), 1 << 20, None, fused_sample.K4_FLOAT4),
+    # 6 and 33 lanes' worth of channels: idle lanes, and a second trip
+    ((24, 132, 4), (9, 11, 7), 3001, None, fused_sample.K4_FLOAT4),
+    ((6, 3, 5), (19, 17, 13), 5000, None, fused_sample.K4_SCALAR),
+    # a table off a 16-byte boundary takes the scalar kernel
+    ((8, 4, 4), (19, 17, 13), 5000, "plane", fused_sample.K4_SCALAR),
+    ((64, 16, 16), (40, 36, 33), 70001, "line", fused_sample.K4_SCALAR)])
+def test_triplane_kernel_matches_plain(dev, comps, grid, n, shift, mode):
+    """K4 in the form that the shapes, or an unaligned view, force: bitwise
+    equal to its plain twin, which rounds at the same places."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    planes, lines = _tables(dev, g, comps, grid)
+    pp, pl, sizes = triplane.pack_grids(planes, lines)
+    if shift == "plane":
+        pp = [pp[0], _misaligned(pp[1]), pp[2]]
+    elif shift == "line":
+        pl = [pl[0], pl[1], _misaligned(pl[2])]
+    xyz = _k4_points(dev, g, n, grid)
+    probe = torch.empty(4, device=dev)
+    assert fused_sample._k4_mode(comps, (*pp, *pl, probe)) == mode
+    kernels.reset_launches()
     got = fused_sample.triplane_features(pp, pl, sizes, xyz)
+    assert kernels.LAUNCHES["triplane_features"] == 1
     want = triplane.triplane_features_packed(pp, pl, sizes, xyz)
     assert got.shape == (n, sum(comps))
-    err = float((got - want).abs().max())
-    assert err <= 1e-6 * float(want.abs().max())
+    assert torch.equal(got, want)
     # and against the unpacked sampler, which the packing must not change
     unpacked = triplane.triplane_features(planes, [l for l in lines], xyz)
     assert float((got - unpacked).abs().max()) <= 1e-5 * float(
         unpacked.abs().max())
+
+
+def test_triplane_kernel_forms_agree_bitwise(dev):
+    """The float4 kernel, the scalar kernel (forced by an unaligned table)
+    and the float4 kernel over texel-major unpacked tables give the same
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    grid = (61, 47, 29)
+    planes, lines = _tables(dev, g, (64, 16, 16), grid)
+    pp, pl, sizes = triplane.pack_grids(planes, lines)
+    xyz = _k4_points(dev, g, 200_003, grid)
+    wide = fused_sample.triplane_features(pp, pl, sizes, xyz)
+    scalar = fused_sample.triplane_features(
+        [_misaligned(pp[0]), pp[1], pp[2]], pl, sizes, xyz)
+    rows, lrows, usizes = fused_sample.unpack_grids(planes, lines)
+    assert list(usizes) == list(sizes)
+    unpacked = fused_sample.triplane_features_unpacked(rows, lrows, usizes,
+                                                       xyz)
+    assert torch.equal(wide, scalar)
+    assert torch.equal(wide, unpacked)
+    with pytest.raises(ValueError, match="float4"):
+        fused_sample.triplane_features_unpacked(
+            [_misaligned(rows[0]), rows[1], rows[2]], lrows, usizes, xyz)
+    with pytest.raises(NotImplementedError, match="sample_grids"):
+        fused_sample.triplane_features(pp, pl, sizes, xyz.requires_grad_())
 
 
 def test_triplane_kernel_nan_coords_stay_in_bounds(dev):

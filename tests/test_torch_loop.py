@@ -75,7 +75,15 @@ FULL = dict(
     event_accumulate_step_range=[1, 3],
     event_accumulate_step_range_end=[1, 3], clip_grads_norm=1.0,
     tone_mapping_start_learn_iter=5)
-VARIANTS = {"naive": {}, "full": FULL}
+# the DSK kernel (no jitter) from step 3 with its align term, the EDI prior
+# as the pts0 target, and the blur loss held off until after step 5
+DSK_PTS0 = dict(
+    kernel_type="DSK", kernel_ptnum=3, kernel_start_iter=3,
+    kernel_img_embed=8, kernel_num_hidden=1, kernel_num_wide=8,
+    kernel_random_hwindow=0.0, kernel_spatial_embed=1,
+    kernel_align_weight=0.1, use_events=True, use_pts0_prior="edi",
+    pts0_edi_steps=3, blur_loss_after=5, clip_grads_norm=1.0)
+VARIANTS = {"naive": {}, "full": FULL, "dsk_pts0": DSK_PTS0}
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +153,27 @@ def test_loop_matches_jax_loop(scene, tmp_path, variant):
         np.testing.assert_allclose(
             [got[tag][s] for s in steps], [want[tag][s] for s in steps],
             rtol=2e-2, err_msg=tag)
+    # the same scalar tags at the same steps, but for the per-parameter
+    # gradient norms (named by flax path there, by the reference's
+    # parameter names here), LPIPS, which the port does not compute yet,
+    # and the learning rate, which only the port logs
+    def tags(scalars):
+        return {t: sorted(v) for t, v in scalars.items()
+                if not t.startswith("test/lpips") and t != "train/lr"
+                and (not t.startswith("train/grads/")
+                     or t == "train/grads/total")}
+
+    assert tags(got) == tags(want)
+    assert "train/pts0_psnr" in got and "train/grads/total" in got
+    if variant == "dsk_pts0":
+        # while the blur loss waits, the loops print and log the PSNR of
+        # the summed pts0 terms; the align term exists from the kernel start
+        assert sorted(got["train/align_loss"]) == list(range(3, N_STEPS))
+        for tag in ("train/pts0_psnr", "train/pts0_loss"):
+            np.testing.assert_allclose(
+                [got[tag][s] for s in steps], [want[tag][s] for s in steps],
+                rtol=2e-2, err_msg=tag)
+        assert got["train/pts0_psnr"][0] != got["train/psnr"][0]
     if variant == "full":
         # the event loss exists exactly from the event start on, and the
         # AWP loss from the kernel start on, in both

@@ -229,13 +229,90 @@ def test_no_module_imports_jax():
     """No module of the port, nor its root scripts, imports jax, flax or
     anything of the JAX package."""
     files = [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
-             REPO / "run_nerf_torch.py",
+             REPO / "bench_torch.py", REPO / "run_nerf_torch.py",
              *(REPO / "tools").glob("*_torch.py")]
     for path in files:
         text = path.read_text()
         assert not re.search(
             r"^\s*(import|from)\s+(jax|flax|optax|orbax|evdeblurnerf_tpu)\b",
             text, re.M), path
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Thousands of tiny operations (the CRF pre-fit) gain nothing from
+    torch's thread pool and lose minutes to it beside other busy
+    processes."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_bench_torch_tiny_runs_on_the_cpu(tmp_path, one_torch_thread):
+    """``python3 bench_torch.py --device cpu --tiny``: the three readings
+    through the same code at a small size; the JSON line has its keys, the
+    losses are finite, and no BENCHMARK.json appears."""
+    import json
+    import math
+
+    import bench_torch
+
+    out = tmp_path / "bench.json"
+    result = bench_torch.main(["--device", "cpu", "--tiny", "--iters", "2",
+                               "--out", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(result))
+    assert result["device"] == {"platform": "cpu", "kind": "cpu"}
+    assert result["card"] is None and result["tiny"] is True
+    assert {"torch", "cuda", "commit", "config", "overrides",
+            "host_share"} <= set(result)
+    for reading in ("step_only", "loop"):
+        r = result[reading]
+        assert r["rays_per_step"] == 32 * 3 + 2 * 32 and r["iters"] == 2
+        assert r["ms_per_step"] > 0 and math.isfinite(r["train_rays_per_s"])
+        assert r["launches_per_step"] == {}     # no kernel runs on the CPU
+    losses = result["step_only"]["losses"]
+    assert len(losses) == bench_torch.WARMUP_STEPS + 2
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    assert result["serve"]["rays"] == bench_torch.TINY_H * bench_torch.TINY_W
+    assert result["serve"]["eval_rays_per_s"] > 0
+    assert not (REPO / "BENCHMARK.json").exists()
+    only = bench_torch.run(device="cpu", tiny=True, iters=1, only="serve")
+    assert "serve" in only and "step_only" not in only and "loop" not in only
+
+
+@pytest.mark.parametrize("kernel_type", ["DSK", "PBE"])
+def test_dsk_and_pbe_build_through_the_flags(kernel_type):
+    """``--kernel_type DSK|PBE`` reaches the model: nothing refuses it, the
+    kernel's parameters carry the reference's names and sit in the
+    optimizer."""
+    from evdeblurnerf_torch.models.blur_dsk import DSKBlurModel
+    from evdeblurnerf_torch.train import state as tstate
+
+    args = tconfig.default_args(
+        kernel_type=kernel_type, kernel_ptnum=3, N_samples=4, N_importance=4,
+        coarse_n_voxels=512, fine_n_voxels=512, coarse_app_n_comp=[4, 2, 2],
+        fine_app_n_comp=[4, 2, 2], kernel_img_embed_type="param_mlp",
+        kernel_img_mlp_depth=2, kernel_img_mlp_embed=6)
+    tconfig.check_supported(args)
+    model, crf = tstate.build_model(args, ((-1, -1, -1), (1, 1, 1)), 8, 10,
+                                    9.0, 0.0, 1.0, 3,
+                                    torch.Generator().manual_seed(0), "cpu")
+    assert isinstance(model.kernelsnet, DSKBlurModel)
+    assert model.kernelsnet.kernel_type == kernel_type
+    names = {n for n, _ in model.named_parameters()}
+    assert {"kernelsnet.pattern_pos", "kernelsnet.linears.0.weight",
+            "kernelsnet.linears1.2.bias", "kernelsnet.img_embed.img_embed",
+            "kernelsnet.img_embed.view_embed_linears.1.weight"} <= names
+    assert model.mlp_coarse.composite_feature == (kernel_type == "PBE")
+    torch.testing.assert_close(
+        model.K, torch.tensor([[9.0, 0, 5.0], [0, 9.0, 4.0], [0, 0, 1.0]]))
+    state = tstate.create_train_state(model, crf, args, torch.Generator(),
+                                      crf_identity_prefit=False)
+    held = {id(p) for g in state.optimizer.param_groups for p in g["params"]}
+    assert all(id(p) in held for p in model.kernelsnet.parameters())
 
 
 def test_cuda_sources_exist_with_their_notes():

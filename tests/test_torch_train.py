@@ -403,14 +403,15 @@ def test_adam_and_lr_rule_match_jax():
 
 def test_chip_smoke_train_flags_are_the_paper_config():
     """chip_smoke.py parses the paper configuration through the port's own
-    parser: what ``chip_smoke.train_args()`` returns equals the JAX
-    package's parse of the same file with the two overrides, flag by flag,
-    apart from PORT_DEFAULTS (grad_accum among them) and the port's own
-    ``device``."""
+    parser, through bench_torch.py: what ``chip_smoke.train_args()``
+    returns equals the JAX package's parse of the same file with the two
+    overrides, flag by flag, apart from PORT_DEFAULTS (grad_accum among
+    them) and the port's own ``device``."""
+    import bench_torch
     import chip_smoke
 
-    argv = ["--config", chip_smoke.PAPER_CONFIG]
-    for k, v in chip_smoke.PAPER_OVERRIDES.items():
+    argv = ["--config", bench_torch.PAPER_CONFIG]
+    for k, v in bench_torch.PAPER_OVERRIDES.items():
         argv += [f"--{k}", str(v)]
     want = jconfig.resolve_event_thresholds(
         jconfig.parse_args(argv)).as_dict()
@@ -425,6 +426,13 @@ def test_chip_smoke_train_flags_are_the_paper_config():
     assert chip_smoke.train_args().grad_accum == \
         tconfig.PORT_DEFAULTS["grad_accum"]
     assert chip_smoke.train_args(perturb=0.0).perturb == 0.0
+    assert chip_smoke.train_args().as_dict() == \
+        bench_torch.train_args().as_dict()
+    # one maker of the bench batch, with what the DSK/PBE kernels read
+    batch, ev = chip_smoke.make_train_batch("cpu", 8, 4)
+    assert set(batch) == {"rays", "rays_x", "rays_y", "images_idx", "poses",
+                          "rgbsf", "rgbsf_pts0"}
+    assert batch["poses"].shape == (8, 3, 4) and len(ev) == 4
 
 
 def test_port_defaults_pin_grad_accum():
@@ -609,3 +617,88 @@ def test_grad_accum_step_matches_jax():
     np.testing.assert_allclose(
         model.awpnet.MAM.Corr.convd[1].running_mean.numpy(),
         np.asarray(mean), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the DSK and PBE training step against the JAX step from one init
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,n_steps", [("pbe", 5), ("dsk", 3)])
+def test_dsk_pbe_train_steps_match_jax(name, n_steps):
+    """Steps of the port's train step and the JAX step from the golden
+    weights of the oracle variant, on the lockstep batches with an EDI-prior
+    target: the pts0 loss on (three terms for PBE, with the stage-0 render's)
+    and, for DSK, the align term at weight 0.1. Per-step loss within 2e-2
+    relative, the lockstep bound (measured: 3.2e-7 at most); the
+    ladder's terms of the first step and its gradients at the repo's
+    bounds."""
+    from evdeblurnerf_tpu.train.state import create_train_state as jcreate
+
+    data = np.load(oc.oracle_path(name))
+    variables = _nest(data, "var/")
+    args = oc.make_args({**oc.VARIANTS[name], "lrate": lc.LRATE,
+                         "lrate_decay": lc.LRATE_DECAY,
+                         "kernel_tv_loss_weight": lc.TV_W,
+                         "kernel_align_weight": 0.1,
+                         "no_log_grads_norm": True})
+    rng = np.random.default_rng(41)
+    batches = [dict(b, rgbsf_pts0=rng.uniform(0, 1, (oc.N, 3)).astype(
+        np.float32)) for b in lc.make_batches()]
+    sw = tstep.ScheduleWeights(w_pts0=0.5, use_pts0_target=True, w_align=0.1)
+    jsw = jstep.ScheduleWeights(
+        w_img=jnp.ones(()), loss_a=jnp.ones(()), w_pts0=jnp.asarray(0.5),
+        use_pts0_target=jnp.ones((), bool), cf=jnp.ones(()),
+        ff=jnp.zeros(()), w_align=jnp.asarray(0.1), w_egm=jnp.zeros(()),
+        skip_learn_crf=jnp.zeros((), bool), color_weight=jnp.ones((3,)))
+
+    jmodel = oc.build_model(name)
+    jcrf = JTonemapping()
+    tx = joptim.build_optimizer(lc.LRATE, lc.LRATE_DECAY)
+    info = {k: batches[0][k] for k in ("images_idx", "rays_x", "rays_y",
+                                       "poses")}
+    jstate = jcreate(jmodel, jcrf, tx, jax.random.PRNGKey(5),
+                     batches[0]["rays"], info)
+    jstate = jstate.replace(
+        params={"nerf": jax.tree_util.tree_map(jnp.asarray,
+                                               variables["params"]),
+                "crf": jstate.params["crf"]})
+    jstep_fn = jstep.build_train_step(jmodel, jcrf, tx, args,
+                                      return_grads=True)
+
+    model = _model(variables, args)
+    state = create_train_state(model, TonemappingTransform(), args,
+                               torch.Generator(), crf_identity_prefit=False)
+    step = tstep.build_train_step(args, return_grads=True)
+    rel = []
+    for i in range(n_steps):
+        b = batches[i % lc.N_BATCHES]
+        jstate, jaux = jstep_fn(jstate, b, None, jax.random.PRNGKey(i), jsw,
+                                force_naive=False, events_active=False)
+        aux = step(state, _tensors(b), None, sw, False, False)
+        rel.append(abs(float(aux["loss"]) - float(jaux["loss"]))
+                   / abs(float(jaux["loss"])))
+        if i:
+            continue
+        terms = ["img_loss", "psnr", "pts0_loss", "pts0_psnr", "tv_loss"]
+        terms += ["align_loss"] if name == "dsk" else []
+        for k in terms:
+            np.testing.assert_allclose(float(aux[k]), float(jaux[k]),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
+        assert ("align_loss" in aux) == ("align_loss" in jaux) == \
+            (name == "dsk")
+        if name == "dsk":
+            assert float(aux["align_loss"]) > 0
+        want = state_dict_from_jax({"params": jaux["grads_tree"]["nerf"]})
+        assert set(want) == set(aux["grads"])
+        for pname, w in want.items():
+            scale = max(float(w.abs().max()), 1e-6)
+            np.testing.assert_allclose(aux["grads"][pname].numpy(),
+                                       w.numpy(), atol=5e-4 * scale,
+                                       rtol=5e-4, err_msg=pname)
+    assert max(rel) < 2e-2, rel
+    print(f"{name}: per-step relative loss difference {rel}")
+    # both kernels sit in the optimizer's one group beside the fields
+    groups = state.optimizer.param_groups
+    assert any(p is model.kernelsnet.pattern_pos for p in groups[0]["params"])
+    assert int(state.optimizer.state[model.kernelsnet.pattern_pos]["step"]) \
+        == n_steps

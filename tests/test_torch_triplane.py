@@ -108,6 +108,72 @@ def test_unpacked_sampler_matches_jax_and_grid_sample():
     _close(got, torch.cat(feats, -1).numpy())
 
 
+def _off_boundary(t):
+    """A contiguous copy of ``t`` that starts 4 bytes off a 16-byte
+    boundary."""
+    base = torch.empty(t.numel() + 8, dtype=t.dtype)
+    start = next(i for i in range(1, 8)
+                 if (base.data_ptr() + 4 * i) % 16 == 4)
+    out = base[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("comps,shift,want", [
+    ((8, 4, 4), None, fused_sample.K4_FLOAT4),
+    ((64, 16, 16), None, fused_sample.K4_FLOAT4),
+    ((132, 4, 24), None, fused_sample.K4_FLOAT4),
+    ((6, 3, 5), None, fused_sample.K4_SCALAR),
+    ((8, 4, 2), None, fused_sample.K4_SCALAR),
+    ((8, 4, 4), "plane", fused_sample.K4_SCALAR),
+    ((8, 4, 4), "line", fused_sample.K4_SCALAR)])
+def test_k4_wrapper_chooses_its_form(comps, shift, want):
+    """The float4 kernel wants every component count a multiple of 4 and
+    every table on a 16-byte boundary; anything else takes the scalar
+    kernel."""
+    rng = np.random.default_rng(5)
+    planes, lines = _grids(rng, comps)
+    pp, pl, _ = ttp.pack_grids([torch.from_numpy(p) for p in planes],
+                               [torch.from_numpy(l) for l in lines])
+    pp = [t.clone() for t in pp]
+    assert all(t.data_ptr() % 16 == 0 for t in (*pp, *pl))
+    if shift == "plane":
+        pp[2] = _off_boundary(pp[2])
+    elif shift == "line":
+        pl[0] = _off_boundary(pl[0])
+    assert fused_sample._k4_mode(comps, (*pp, *pl)) == want
+
+
+@pytest.mark.parametrize("comps", [(8, 4, 4), (6, 3, 5)])
+def test_k4_twin_on_texel_boundaries_and_outside(comps):
+    """K4's plain twin, through the wrapper on CPU tensors, at points
+    exactly on texel boundaries of every axis and on and outside [-1, 1],
+    against the JAX kernel in interpret mode; the wrapper over unpacked
+    texel-major tables gives the same bits."""
+    rng = np.random.default_rng(6)
+    planes, lines = _grids(rng, comps)
+    xyz = np.concatenate([_boundary_points(), _points(rng, 50)], 0)
+    tp_ = [torch.from_numpy(p) for p in planes]
+    tl = [torch.from_numpy(l) for l in lines]
+    pp, pl, sizes = ttp.pack_grids(tp_, tl)
+    got = fused_sample.triplane_features(pp, pl, sizes,
+                                         torch.from_numpy(xyz))
+    assert bool(torch.isfinite(got).all())
+    _close(got.numpy(), np.asarray(jfs.fused_triplane_features(
+        [jnp.asarray(p) for p in planes], [jnp.asarray(l) for l in lines],
+        jnp.asarray(xyz))))
+    rows, lrows, usizes = fused_sample.unpack_grids(tp_, tl)
+    assert list(usizes) == list(sizes)
+    assert [tuple(r.shape) for r in rows] == [
+        (H * W, c) for (H, W, _), c in zip(sizes, comps)]
+    assert torch.equal(fused_sample.triplane_features_unpacked(
+        rows, lrows, usizes, torch.from_numpy(xyz)), got)
+    # a point far outside reads zeros on every projection
+    far = fused_sample.triplane_features(
+        pp, pl, sizes, torch.tensor([[3.0, -3.0, 5.0]]))
+    assert not far.any()
+
+
 # ---------------------------------------------------------------------------
 # gradients: K5 (sample_grids) and K6 (line_grad) twins, the field's tables
 # ---------------------------------------------------------------------------

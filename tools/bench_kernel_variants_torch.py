@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """GPU timing: kernels K7 (``tiled_plane_gather``), K1 (``permute_lanes``),
-K5 (``triplane_features_bwd``) and K6 (``line_grad``) of the PyTorch/CUDA
-port, from the checkout this file lies in or from another one, so that two
+K4 (``triplane_features``), K5 (``triplane_features_bwd``) and K6
+(``line_grad``) of the PyTorch/CUDA port, from the checkout this file lies in or from another one, so that two
 versions of the sources can be timed on one card, one after the other.
 
 It imports ``evdeblurnerf_torch`` from the checkout at ``--checkout DIR``
@@ -23,7 +23,16 @@ ones) and the ray-ordered stream of one step
 of the plane gradients) and, where K5 does not sum the line gradients
 itself, K6, so beside its back-to-back time the device time is split by
 kernel name (K5's kernel, K6's kernels, the rest).
-``chip_smoke.py`` takes its K5 and K6 inputs and times from here.
+K4 (``--kernels k4``) runs at ``K4_CASES``: K5's cases and an eval chunk's
+launches (32,768 Morton-sorted rays of 64 samples on the coarse tables and
+of 128 on the fine ones). Beside the kernel's device time stand two traffic
+floors of the packed tables over the card's memory rate: every distinct
+packed row once (what an unbounded cache would leave) and every point's
+plane rows (what no cache at all would cost), each with xyz read and the
+[N, 96] output written once. ``--k4-unpacked`` times the same cases
+through ``triplane_features_unpacked``, K4's float4 kernel over texel-major
+unpacked tables, a quarter of the packed planes' size.
+``chip_smoke.py`` takes its K4, K5 and K6 inputs and times from here.
 
 Another version is another directory: an earlier commit unpacked with
 ``git archive <commit> evdeblurnerf_torch | tar -x -C build/parent``, or a
@@ -35,6 +44,7 @@ Usage (needs one CUDA card and nvcc), from the root of a checkout:
     python tools/bench_kernel_variants_torch.py
     python tools/bench_kernel_variants_torch.py --checkout build/parent
     python tools/bench_kernel_variants_torch.py --kernels k5,k6
+    python tools/bench_kernel_variants_torch.py --kernels k4 --k4-unpacked
 """
 
 import argparse
@@ -69,7 +79,15 @@ K6_CASES = dict(
     step_coarse=("coarse", 0, STEP_COARSE_POINTS, "uniform"),
     rays_fine=("fine", 0, STEP_FINE_POINTS, "rays"),
     rays_fine_narrow=("fine", 1, STEP_FINE_POINTS, "rays"))
-K5_KERNEL, K6_KERNEL = "triplane_bwd", "line_grad"   # in the kernels' names
+EVAL_RAYS = 32768                                        # one eval chunk
+# label: (tables, points, stream)
+K4_CASES = dict(
+    K5_CASES,
+    eval_coarse=("coarse", EVAL_RAYS * 64, "eval_rays"),
+    eval_fine=("fine", EVAL_RAYS * 128, "eval_rays"))
+# in the kernels' names
+K4_KERNEL, K5_KERNEL, K6_KERNEL = "triplane_fwd", "triplane_bwd", "line_grad"
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 
 
 def _load(name):
@@ -102,15 +120,19 @@ def paper_grids(dev, g, tables):
 def sample_points(dev, g, n, stream):
     """[n, 3] points: "uniform" reaches past [-1, 1], so the zeros-padding
     and clip rules run, as they do for rays leaving the box; "rays" is the
-    ray-ordered stream of one training step's fine RBK launch, mapped from
-    [0, 1] to [-1, 1]."""
+    ray-ordered stream of one training step's fine RBK launch and
+    "eval_rays" that of one eval chunk (``EVAL_RAYS`` rays of n / EVAL_RAYS
+    samples), mapped from [0, 1] to [-1, 1]."""
     import torch
 
     if stream == "uniform":
         return torch.rand(n, 3, generator=g, device=dev) * 2.2 - 1.1
     from evdeblurnerf_torch.utils.locality import step_points_xyz
 
-    xyz = step_points_xyz(STEP_RAYS, STEP_PTNUM, STEP_SAMPLES)
+    if stream == "eval_rays":
+        xyz = step_points_xyz(EVAL_RAYS, 1, n // EVAL_RAYS)
+    else:
+        xyz = step_points_xyz(STEP_RAYS, STEP_PTNUM, STEP_SAMPLES)
     if xyz.shape[0] != n:
         raise ValueError(f"the step's stream has {xyz.shape[0]} points, "
                          f"not {n}")
@@ -128,6 +150,65 @@ def k5_inputs(dev, g, case):
     xyz = sample_points(dev, g, n, stream)
     cot = torch.randn(n, sum(N_COMP), generator=g, device=dev)
     return planes, lines, triplane.pack_grids(planes, lines), xyz, cot
+
+
+def k4_inputs(dev, g, case):
+    """(planes, lines, packed, xyz) of one ``K4_CASES`` entry."""
+    from evdeblurnerf_torch.ops import triplane
+
+    tables, n, stream = K4_CASES[case]
+    _, planes, lines = paper_grids(dev, g, tables)
+    xyz = sample_points(dev, g, n, stream)
+    return planes, lines, triplane.pack_grids(planes, lines), xyz
+
+
+def k4_traffic(packed, xyz):
+    """Bytes K4 moves over the packed tables at these points, two ways:
+    ``distinct`` counts every packed row that some point reads once (what
+    an unbounded cache would leave), ``every_point`` every point's three
+    plane rows (no cache at all: uniform points on tables far above the L2)
+    and the distinct line rows (the line tables, 200 KB, stay cached); both
+    add xyz read and the output written once."""
+    import torch
+
+    from evdeblurnerf_torch.ops import triplane
+
+    planes, lines, sizes = packed
+    n = xyz.shape[0]
+    fixed = 4 * n * (3 + sum(ln.shape[1] // 2 for ln in lines))
+    distinct = every = 0
+
+    def base(col, size):
+        f = (xyz[:, col] + 1.0) * 0.5 * (size - 1)
+        return torch.clamp(torch.floor(f), 0, size - 2).long()
+
+    for i, (H, W, D) in enumerate(sizes):
+        m0, m1 = triplane.MAT_MODE[i]
+        texel = base(m1, H) * W + base(m0, W)
+        row = base(triplane.VEC_MODE[i], D)
+        prow, lrow = 4 * planes[i].shape[1], 4 * lines[i].shape[1]
+        line_bytes = int(torch.unique(row).numel()) * lrow
+        distinct += int(torch.unique(texel).numel()) * prow + line_bytes
+        every += n * prow + line_bytes
+    return dict(distinct=fixed + distinct, every_point=fixed + every)
+
+
+def time_k4(timing, packed, xyz, unpacked=None):
+    """K4 back to back and its kernel's own device ms; ``unpacked``
+    (tables of ``fused_sample.unpack_grids``) times the float4 kernel over
+    those instead of the packed ones."""
+    from evdeblurnerf_torch.ops import fused_sample
+
+    if unpacked is None:
+        def call():
+            return fused_sample.triplane_features(*packed, xyz)
+    else:
+        def call():
+            return fused_sample.triplane_features_unpacked(*unpacked, xyz)
+
+    return dict(ms=timing.cuda_ms(call, iters=10, warmup=2),
+                device_ms=timing.device_ms_by_name(
+                    call, (K4_KERNEL,))[K4_KERNEL])
 
 
 def k6_inputs(dev, g, case):
@@ -194,14 +275,16 @@ def main(argv=None):
                     help="the directory that holds the evdeblurnerf_torch "
                     "to time (default: this checkout)")
     ap.add_argument("--kernels", default="k7,k1",
-                    help="comma-separated choice of k7, k1, k5, k6 "
+                    help="comma-separated choice of k7, k1, k4, k5, k6 "
                     "(default: k7,k1)")
+    ap.add_argument("--k4-unpacked", action="store_true",
+                    help="time K4 over texel-major unpacked tables as well")
     ap.add_argument("--skip-k7", action="store_true",
                     help="leave K7 out of the choice")
     opts = ap.parse_args(argv)
     chosen = set(opts.kernels.lower().split(","))
-    if chosen - {"k7", "k1", "k5", "k6"}:
-        ap.error(f"--kernels takes k7, k1, k5, k6, got {opts.kernels}")
+    if chosen - {"k7", "k1", "k4", "k5", "k6"}:
+        ap.error(f"--kernels takes k7, k1, k4, k5, k6, got {opts.kernels}")
     if opts.skip_k7:
         chosen.discard("k7")
 
@@ -241,6 +324,26 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     g = torch.Generator(device=dev).manual_seed(0)
+    for case in K4_CASES if "k4" in chosen else ():
+        from evdeblurnerf_torch.ops import fused_sample
+
+        planes, lines, packed, xyz = k4_inputs(dev, g, case)
+        t = time_k4(timing, packed, xyz)
+        floors = {k: 1e3 * v / HBM_BYTES_PER_S
+                  for k, v in k4_traffic(packed, xyz).items()}
+        line = (f"K4 {case} {K4_CASES[case]}: back to back {t['ms']:.4f} ms, "
+                f"kernel device {t['device_ms']:.4f} ms; packed-table "
+                f"traffic floors: distinct rows {floors['distinct']:.4f} ms, "
+                f"every point's rows {floors['every_point']:.4f} ms")
+        if opts.k4_unpacked:
+            del packed
+            u = time_k4(timing, None, xyz,
+                        fused_sample.unpack_grids(planes, lines))
+            line += (f"; unpacked tables: back to back {u['ms']:.4f} ms, "
+                     f"kernel device {u['device_ms']:.4f} ms")
+        print(line, flush=True)
+        del planes, lines, xyz
+        torch.cuda.empty_cache()
     for case in K5_CASES if "k5" in chosen else ():
         t = time_k5(timing, *k5_inputs(dev, g, case))
         print(f"K5 {case} {K5_CASES[case]}: wrapper back to back "
