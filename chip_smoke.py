@@ -107,7 +107,22 @@ kernel and case, phase 8 a few):
     on the CPU from one state dict, losses within 1e-5 relative;
 11. ``bench_torch.run()`` for ``step_only`` with 5 timed steps: its ms/step
     within 5% of phase 6's (a reading beyond that is taken again, three
-    times in all: the step follows the shared host).
+    times in all: the step follows the shared host);
+12. the vanilla-NeRF field (``mode=nerf``) and what came with it: 2 warm-up
+    and 5 timed training steps at the reference's NeRF width (8 x 256
+    coarse and fine MLPs, the paper configuration's RBK with 5 rays a
+    pixel and AWP on 1,024 rays, 64+64 samples, EGM on 2 x 1,024 event
+    rays through the learned event CRF), every loss finite and no TV term,
+    every parameter group updated, K3 launched (its launches a step
+    printed with ms/step and peak memory); one serving chunk of 32,768
+    rays through ``serving.build_renderer`` in ``mode=nerf`` at that width,
+    and its render of 1,024 rays on the card against the CPU's with phase
+    5's limits; LPIPS on one 480x640 pair, card against CPU within 1e-4
+    relative; a two-step run through ``cli.main`` with
+    ``--profile_start_step 0 --profile_num_steps 2`` that leaves a Chrome
+    trace holding the step range and device activity; a 30-iteration run of
+    ``tools/validate_train_torch.py --profile small`` with a finite held-out
+    PSNR and ``lpips_trunk=fallback`` in its ``test_metrics.txt``.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -152,7 +167,10 @@ SERVE_FLAGS = dict(
     fine_app_n_comp=[64, 16, 16], fine_n_voxels=134217984,
     fine_app_actfn="none",
     kernel_type="RBK", kernel_feat_cnl=15,
-    tone_mapping_type="gamma", tone_mapping_gamma=2.2, chunk=CHUNK)
+    tone_mapping_type="gamma", tone_mapping_gamma=2.2, chunk=CHUNK,
+    # the NeRF field's flags, unread by the c2f fields
+    white_bkgd=False, rgb_activate="sigmoid", sigma_activate="relu",
+    netdepth=8, netwidth=256, netdepth_fine=8, netwidth_fine=256)
 # the training path's flags and batch are bench_torch.py's (the paper's
 # configuration file with the blur kernel and the learned CRF live from
 # step 0): train_args() and make_train_batch() below
@@ -164,6 +182,12 @@ AB_RAYS, AB_EV_RAYS = 64, 64
 PBE_FLAGS = dict(kernel_type="PBE", kernel_ptnum=5, kernel_hwindow=10,
                  kernel_use_awp=False, use_events=False, add_event_egm=False)
 PBE_CPU_TOL = 1e-5      # phase 10: the small PBE step's loss, card vs CPU
+# phase 12: the reference's NeRF width (configs of the DP-NeRF family)
+NERF_FLAGS = dict(mode="nerf", netdepth=8, netwidth=256, netdepth_fine=8,
+                  netwidth_fine=256, kernel_ptnum=5, N_rand=1024,
+                  events_N_rand=1024, N_samples=64, N_importance=64)
+LPIPS_TOL = 1e-4        # phase 12: LPIPS card vs CPU, relative
+VALIDATE_ITERS = 30
 BENCH_STEP_TOL = 0.05   # phase 11: bench_torch's step against phase 6's
 BENCH_STEP_TRIES = 3
 # K6's path: a sampler backward whose 64-component line (grid z) is too
@@ -1521,6 +1545,205 @@ def phase_bench_torch(step_only):
     return result
 
 
+def _nerf_train(dev, card):
+    """Phase 12, training: ``mode=nerf`` steps at the reference's width."""
+    import torch
+
+    from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.train import step as tstep
+
+    args = train_args(**NERF_FLAGS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model, state = _train_state(args, dev, H, W, FOCAL, NUM_IMAGES, gen)
+    step = tstep.build_train_step(args)
+    sw_of = tstep.schedule_weights_fn(args)
+    batch, ev_batch = make_train_batch(dev, args.N_rand, args.events_N_rand)
+    named = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named.items()}
+
+    def one():
+        return step(state, batch, ev_batch, sw_of(state.step), False, True)
+
+    auxes = [one() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    auxes += [one() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(a["loss"]) for a in auxes]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    check(all("tv_loss" not in a and float(a["event_egm"]) > 0
+              for a in auxes), "mode=nerf step: a TV term, or no event loss")
+    check(launches["cdf_take"] > 0, "K3 never launched in the mode=nerf step")
+    changed = {}
+    for n, p in named.items():
+        changed.setdefault(_param_group(n), []).append(
+            not torch.equal(before[n], p.detach()))
+    for group, flags in changed.items():
+        check(any(flags), f"no parameter of {group} changed in the mode=nerf "
+              "steps")
+    ms = 1e3 * secs / TRAIN_STEPS
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    n_rays = args.N_rand * args.kernel_ptnum + 2 * args.events_N_rand
+    print(f"[12 nerf] mode=nerf step ({args.netdepth}x{args.netwidth} and "
+          f"{args.netdepth_fine}x{args.netwidth_fine} MLPs, RBK ptnum "
+          f"{args.kernel_ptnum}, AWP {args.kernel_use_awp}, {args.N_rand} "
+          f"rays, {args.N_samples}+{args.N_importance} samples, 2 x "
+          f"{args.events_N_rand} event rays, learned event CRF): "
+          f"{TRAIN_STEPS} steps in {secs:.3f} s = {ms:.1f} ms/step, "
+          f"{n_rays * TRAIN_STEPS / secs:.1f} train rays/s on {card}; peak "
+          f"{peak_gib:.2f} GiB; losses {[round(v, 6) for v in losses]}; "
+          f"launches per step {per_step} (K3 {per_step.get('cdf_take', 0):g}); "
+          f"parameters changed "
+          f"{ {g: f'{sum(f)}/{len(f)}' for g, f in changed.items()} }")
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, state, before, named, auxes
+    torch.cuda.empty_cache()
+    return args, sd, launches, dict(ms_per_step=ms, peak_gib=peak_gib,
+                                    losses=losses, launches=launches)
+
+
+def _nerf_serve(dev, args, sd):
+    """Phase 12, serving: one chunk in ``mode=nerf``, and card vs CPU."""
+    import torch
+
+    from evdeblurnerf_torch import kernels, serving
+    from evdeblurnerf_torch.train.evaluate import pose_rays
+
+    K = [[FOCAL, 0.0, W / 2], [0.0, FOCAL, H / 2], [0.0, 0.0, 1.0]]
+    args.chunk = CHUNK
+    renderer = serving.build_renderer(args, sd, H, W, K, NEAR, FAR, AABB,
+                                      device=dev)
+    rays = pose_rays(make_poses()[:1], H, W, K, dev)[:CHUNK]
+    renderer(rays)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rgb, depth, acc = renderer(rays)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all()),
+          "non-finite mode=nerf render")
+    check(launches.get("cdf_take", 0) > 0,
+          "K3 never launched in the mode=nerf serving chunk")
+    sub = rays[torch.linspace(0, CHUNK - 1, CPU_RAYS, device=dev).long()]
+    cpu = serving.build_renderer(args, sd, H, W, K, NEAR, FAR, AABB,
+                                 device="cpu")
+    with torch.inference_mode():
+        card = renderer.model.render(sub)
+        host = cpu.model.render(sub.cpu())
+    diff = torch.zeros(CPU_RAYS)
+    for key in ("rgb_map", "depth_map", "acc_map"):
+        d = (card[key].cpu() - host[key]).abs()
+        diff = torch.maximum(diff, d.reshape(CPU_RAYS, -1).max(-1)[0])
+    beyond = float((diff > CPU_TOL).float().mean())
+    print(f"[12 nerf] serving chunk of {CHUNK} rays in mode=nerf: "
+          f"{1e3 * secs:.1f} ms = {CHUNK / secs:.1f} eval rays/s, launches "
+          f"{launches}; card vs CPU on {CPU_RAYS} rays: max |diff| "
+          f"{float(diff.max()):.3e}, share beyond {CPU_TOL}: {beyond:.4f}")
+    check(beyond <= CPU_MAX_SHARE,
+          f"mode=nerf: {beyond:.4f} of rays differ by more than {CPU_TOL}")
+    del renderer, cpu
+    torch.cuda.empty_cache()
+    return dict(chunk_ms=1e3 * secs, share_beyond=beyond,
+                max_abs_diff=float(diff.max()))
+
+
+def _lpips_card_vs_cpu(dev):
+    """Phase 12, LPIPS: one 480x640 pair on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from evdeblurnerf_torch.models.lpips import LPIPSScorer
+
+    rng = np.random.default_rng(SEED)
+    a = rng.uniform(-1, 1, (H, W, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.2, a.shape), -1, 1).astype(np.float32)
+    card_scorer = LPIPSScorer.from_default(device=dev)
+    card_scorer(a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = card_scorer(a, b)
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    on_cpu = LPIPSScorer.from_default()(a, b)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    print(f"[12 nerf] LPIPS ({'pretrained' if card_scorer.pretrained_trunk else 'fallback'} "
+          f"trunk) on one {H}x{W} pair: card {on_card:.7f} in {card_ms:.1f} "
+          f"ms, CPU {on_cpu:.7f} in {cpu_ms:.1f} ms (rel {rel:.2e})")
+    check(math.isfinite(on_card) and on_card > 0 and rel <= LPIPS_TOL,
+          f"LPIPS card {on_card} vs CPU {on_cpu}")
+    return rel
+
+
+def _trace_and_validate(dev, tmp):
+    """Phase 12: the trace window through ``cli.main``, and a short run of
+    ``tools/validate_train_torch.py``."""
+    from evdeblurnerf_torch import cli
+
+    vtt = _load_tool("validate_train_torch")
+    sst = _load_tool("synthetic_scene_torch")
+    scene = os.path.join(tmp, "vscene")
+    sst.write_synthetic_scene(scene)
+    llff_cls, events_cls = sst.scene_classes()
+    ns = argparse.Namespace(logdir=tmp, scene=scene, kernel="rbk",
+                            cdavis=False)
+    argv = vtt.make_cli(ns, 2) + vtt.SMALL_PROFILE + [
+        "--expname", "trace", "--profile_start_step", "0",
+        "--profile_num_steps", "2", "--tone_mapping_events_type", "none",
+        "--device", str(dev)]
+    t0 = time.perf_counter()
+    cli.main(argv, llff_cls=llff_cls, events_cls=events_cls)
+    traces = glob.glob(os.path.join(tmp, "trace", "profile", "*.json"))
+    check(len(traces) == 1, f"trace window: files {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    # the host's ranges (the device's copies are gpu_user_annotation)
+    ranges = [e for e in events if e.get("name") == "train_step"
+              and e.get("cat") == "user_annotation"]
+    on_device = [e for e in events if e.get("cat") == "kernel"]
+    print(f"[12 nerf] trace window, 2 steps through cli.main in "
+          f"{time.perf_counter() - t0:.1f} s: {traces[0]} "
+          f"({os.path.getsize(traces[0])} bytes, {len(ranges)} step ranges, "
+          f"{len(on_device)} device kernels)")
+    check(len(ranges) == 2 and on_device,
+          f"trace window: {len(ranges)} step ranges, {len(on_device)} "
+          "device kernels")
+
+    t0 = time.perf_counter()
+    vtt.main(["--iters", str(VALIDATE_ITERS), "--profile", "small",
+              "--scene", scene, "--logdir", tmp, "--expname", "validate",
+              "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    with open(os.path.join(tmp, "validate", "test_metrics.txt")) as f:
+        lines = f.read().splitlines()
+    row = vtt.read_test_metrics(os.path.join(tmp, "validate"))
+    last = row[max(row)]
+    print(f"[12 nerf] tools/validate_train_torch.py --profile small, "
+          f"{VALIDATE_ITERS} iterations in {secs:.1f} s: {lines[-1]}")
+    check(len(lines) == 1 and math.isfinite(last["psnr"])
+          and last.get("lpips_trunk") == "fallback",
+          f"validation run wrote {lines}")
+    return last
+
+
+def phase_nerf(dev, card):
+    """Phase 12 (module docstring)."""
+    args, sd, launches, train = _nerf_train(dev, card)
+    serve = _nerf_serve(dev, args, sd)
+    lpips_rel = _lpips_card_vs_cpu(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        validate = _trace_and_validate(dev, tmp)
+    return launches, dict(train=train, serve=serve, lpips_rel=lpips_rel,
+                          validate=validate)
+
+
 def main():
     try:
         import torch
@@ -1554,6 +1777,7 @@ def main():
         bench_launches = phase_bench_entry()
         phase_pbe(dev, card)
         phase_bench_torch(step_only)
+        nerf_launches, _ = phase_nerf(dev, card)
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                          "evdeblurnerf_tpu")]
@@ -1570,6 +1794,7 @@ def main():
                          else r.pop("path_launches") if "path_launches" in r
                          else train_launches[name])
         r["launches_loop"] = loop_launches[name]
+        r["launches_nerf"] = nerf_launches[name]
         if name in SERVE_KERNELS:
             r["launches_serve"] = serve_launches[name]
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in

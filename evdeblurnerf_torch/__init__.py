@@ -6,8 +6,10 @@ against. Ported so far: the eval/serving render of the c2f PDRF model
 the paper's training step (``train.state.create_train_state`` ->
 ``train.step.build_train_step``) and the training run around it
 (``cli.main`` -> ``train.loop.train``: datasets, prefetch, schedules,
-checkpoints, held-out renders, resume, render-only), with the TPU's Pallas
-kernels written by hand for Hopper (``kernels/``, ``csrc/``): K1
+checkpoints, held-out renders with LPIPS, resume, render-only, the
+``torch.profiler`` trace window), in both field families (the c2f PDRF
+voxel fields and the vanilla NeRF MLPs of ``mode=nerf``), with the TPU's
+Pallas kernels written by hand for Hopper (``kernels/``, ``csrc/``): K1
 ``permute_lanes`` and its backward launch, K2 ``permute_lanes_3d``, K3
 ``cdf_take``, the tri-plane sampler's forward K4 and backward K5, the
 line-table gradient K6, and the tiled plane gather K7 behind its bench

@@ -603,12 +603,6 @@ def check_supported(args: Args) -> None:
         todo.append(("--multihost", 22))
     if getattr(args, "triplane_bf16", False):
         todo.append(("--triplane_bf16 (bf16 tables)", 24))
-    if getattr(args, "mode", "c2f") != "c2f":
-        todo.append((f"--mode {args.mode}", 19))
-    if getattr(args, "profile_start_step", -1) is not None \
-            and getattr(args, "profile_start_step", -1) >= 0:
-        todo.append(("--profile_start_step >= 0 (tracing: the port has no "
-                     "trace window yet)", 15))
     if todo:
         raise NotImplementedError(
             "not ported to evdeblurnerf_torch yet: " + "; ".join(

@@ -90,6 +90,38 @@ class RigidBlurringModel(nn.Module):
             warped = torch.cat([rays[:, None], warped], 1)
         return warped
 
+    def rbk_warp_pose(self, poses: torch.Tensor, r: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+        """Warp [N, 3, 4] camera poses per motion (ref:
+        dpnerf/blurmodel.py:84-110). Returns [N, num_pt, 4, 4]. Uncalled
+        upstream too (training warps rays); it applies :meth:`rbk_warp`'s
+        screw motion to the camera."""
+        N = poses.shape[0]
+        rot = r.reshape(N, 3, self.num_motion).transpose(1, 2)
+        trans = v.reshape(N, 3, self.num_motion).transpose(1, 2)
+        bottom = torch.eye(4, dtype=poses.dtype,
+                           device=poses.device)[3:].expand(N, 1, 4)
+        poses_h = torch.cat([poses, bottom], 1)
+        transform = se3.se3_transform_from_rot_trans(rot, trans)
+        warped = se3.se3_warp_pose(poses_h[:, None], transform)
+        if self.use_origin:
+            warped = torch.cat([poses_h[:, None], warped], 1)
+        return warped
+
+    def rbk_weighted_sum(self, rgb, depth, acc, extras, ccw):
+        """Compose per-motion outputs, flattened [N * num_pt, ...], with
+        [N, num_pt] weights (ref: dpnerf/blurmodel.py:112-127; the
+        reference's renderer calls it at renderer.py:327-329, the port's
+        training forward composes inline). Returns (rgb, depth, acc,
+        extras) reduced over the motions."""
+        def reduce(x):
+            x = x.reshape(-1, self.num_pt, *x.shape[1:])
+            w = ccw.reshape(*ccw.shape, *([1] * (x.dim() - 2)))
+            return torch.sum(x * w, 1)
+
+        return (reduce(rgb), reduce(depth), reduce(acc),
+                {k: reduce(v) for k, v in extras.items()})
+
     def forward(self, rays: torch.Tensor, img_embed: torch.Tensor,
                 feats: torch.Tensor | None = None):
         """rays [N, 3, 2]; img_embed [N, C_view]; feats [N, total_feat_ch]

@@ -1,9 +1,13 @@
 """Renderer: coarse + fine fields and the per-ray rendering pipeline.
 
 Counterpart of ``evdeblurnerf_tpu/models/renderer.py`` (ref:
-networks/renderer.py:14-626) for the c2f model, with both culls off:
-stratified depths, the coarse field, ``sample_pdf`` importance depths, and
-the fine field over the merged set. At eval everything is deterministic;
+networks/renderer.py:14-626) with both culls off: stratified depths, the
+coarse field, ``sample_pdf`` importance depths, and the fine field over the
+merged set; with ``N_importance == 0`` the coarse pass alone (no ``rgb0``,
+``mlp_fine`` None). The fields are the c2f PDRF voxel fields
+(``mode=c2f``) or the vanilla NeRF MLPs (``mode=nerf``,
+``models/nerf_mlp.py``), whose fine pass evaluates the merged depths in
+sorted order as the reference does. At eval everything is deterministic;
 the training render adds the stratified jitter (``perturb``), the sigma
 noise (``raw_noise_std``) and stochastic importance draws, all from one
 ``torch.Generator`` the caller passes in.
@@ -25,7 +29,11 @@ from torch import nn
 
 from ..ops import lane_shuffle
 from ..ops.sample_pdf import sample_pdf, unit_linspace
+from ..ops import compositing
 from ..utils.rays import get_ndc_rays
+from .embedding import positional_encoding, positional_encoding_dim
+from .layers import ACTIVATIONS
+from .nerf_mlp import NeRFMLP
 from .voxnerf import VoxelNeRF
 
 
@@ -34,7 +42,9 @@ class RenderConfig:
     """Static render/model configuration; fields and defaults mirror the
     JAX package's ``RenderConfig``. The TPU-only fields (culls, bf16
     tables, line matmul) are absent: :func:`config_from_args` rejects a
-    request for what the port does not do yet."""
+    request for what the port does not do yet. ``rgb_activate``,
+    ``sigma_activate``, ``white_bkgd`` and the ``net*`` widths steer the
+    NeRF field only, as in the JAX package."""
 
     mode: str = "c2f"
     N_samples: int = 64
@@ -44,6 +54,7 @@ class RenderConfig:
     multires: int = 10
     multires_views: int = 4
     raw_noise_std: float = 0.0
+    white_bkgd: bool = False
     lindisp: bool = False
     ndc: bool = True
     near: float = 0.0
@@ -52,7 +63,13 @@ class RenderConfig:
     W: int = 0
     focal: float = 0.0
     render_rmnearplane: int = 0
+    rgb_activate: str = "sigmoid"
+    sigma_activate: str = "relu"
     rgb_add_bias: bool = False
+    netdepth: int = 8
+    netwidth: int = 256
+    netdepth_fine: int = 8
+    netwidth_fine: int = 256
     aabb: Tuple[Tuple[float, float, float], Tuple[float, float, float]] = (
         (-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
     coarse_num_layers: int = 2
@@ -80,18 +97,18 @@ class RenderConfig:
     def composite_feature_coarse(self) -> bool:
         return self.kernel_type == "PBE"
 
+    @property
+    def extract_feature(self) -> str:
+        return "before_linear" if self.use_awp else "after_linear"
+
 
 def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
     """Build a RenderConfig from parsed flags and dataset-derived values.
 
     Raises NotImplementedError for settings the port does not render yet,
     naming the ROADMAP item that adds them, instead of rendering something
-    else: ``mode=nerf``, a fine cull at eval, bf16 tables.
+    else: a fine cull at eval, bf16 tables.
     """
-    if args.mode != "c2f":
-        raise NotImplementedError(
-            f"mode={args.mode}: the port renders c2f fields only; the "
-            "vanilla-NeRF field is ROADMAP.md queue 1 item 19")
     if (getattr(args, "fine_cull_capacity", 0.0) or 0.0) > 0.0:
         raise NotImplementedError(
             "fine_cull_capacity > 0: the transmittance fine cull is "
@@ -100,20 +117,20 @@ def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
         raise NotImplementedError(
             "triplane_bf16: the port samples f32 tables; bf16 tables are "
             "ROADMAP.md queue 1 item 24; pass --no_triplane_bf16")
-    if args.N_importance <= 0:
-        raise NotImplementedError(
-            "N_importance=0: the port renders coarse-to-fine with an "
-            "importance pass; a coarse-only render is not ported yet")
     return RenderConfig(
         mode=args.mode, N_samples=args.N_samples,
         N_importance=args.N_importance, perturb=args.perturb,
         use_viewdirs=args.use_viewdirs,
         multires=args.multires, multires_views=args.multires_views,
-        raw_noise_std=args.raw_noise_std, lindisp=args.lindisp,
+        raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd,
+        lindisp=args.lindisp,
         ndc=not args.no_ndc, near=float(near), far=float(far),
         H=int(H), W=int(W), focal=float(focal),
         render_rmnearplane=args.render_rmnearplane,
+        rgb_activate=args.rgb_activate, sigma_activate=args.sigma_activate,
         rgb_add_bias=args.rgb_add_bias,
+        netdepth=args.netdepth, netwidth=args.netwidth,
+        netdepth_fine=args.netdepth_fine, netwidth_fine=args.netwidth_fine,
         aabb=(tuple(float(v) for v in aabb[0]),
               tuple(float(v) for v in aabb[1])),
         coarse_num_layers=args.coarse_num_layers,
@@ -138,17 +155,28 @@ def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
 
 
 class Renderer(nn.Module):
-    """Coarse and fine c2f fields (``mlp_coarse``, ``mlp_fine``) and the
-    eval render of a ray batch."""
+    """Coarse and fine fields (``mlp_coarse``, ``mlp_fine``; the latter None
+    without an importance pass) and the render of a ray batch."""
 
     def __init__(self, cfg: RenderConfig,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        if cfg.mode != "c2f" or cfg.N_importance <= 0:
-            raise NotImplementedError(
-                "the port renders c2f fields with an importance pass only "
-                "(ROADMAP.md queue 1 item 19 adds mode=nerf)")
         self.cfg = cfg
+        if cfg.mode == "nerf":
+            pts_ch = positional_encoding_dim(cfg.multires)
+            views_ch = positional_encoding_dim(cfg.multires_views)
+            common = dict(use_viewdirs=cfg.use_viewdirs,
+                          rgb_add_bias=cfg.rgb_add_bias,
+                          extract_feature=cfg.extract_feature,
+                          generator=generator, device=device)
+            self.mlp_coarse = NeRFMLP(pts_ch, views_ch, D=cfg.netdepth,
+                                      W=cfg.netwidth, **common)
+            self.mlp_fine = (NeRFMLP(pts_ch, views_ch, D=cfg.netdepth_fine,
+                                     W=cfg.netwidth_fine, **common)
+                             if cfg.N_importance > 0 else None)
+            return
+        if cfg.mode != "c2f":
+            raise ValueError(f"mode {cfg.mode!r}: expected c2f or nerf")
         common = dict(aabb=cfg.aabb, multires=cfg.multires,
                       multires_views=cfg.multires_views,
                       add_bias_color=cfg.rgb_add_bias,
@@ -164,16 +192,41 @@ class Renderer(nn.Module):
             hidden_dim_color=cfg.coarse_hidden_dim_color,
             composite_feature=cfg.composite_feature_coarse,
             rgb_activate="relu", app_actfn=cfg.coarse_app_actfn, **common)
-        self.mlp_fine = VoxelNeRF(
-            n_voxels=cfg.fine_n_voxels, app_n_comp=cfg.fine_app_n_comp,
-            app_dim=cfg.fine_app_dim,
-            in_app_dim=cfg.coarse_app_dim + cfg.fine_app_dim,
-            num_layers=cfg.fine_num_layers, hidden_dim=cfg.fine_hidden_dim,
-            geo_feat_dim=cfg.fine_geo_feat_dim,
-            num_layers_color=cfg.fine_num_layers_color,
-            hidden_dim_color=cfg.fine_hidden_dim_color,
-            composite_feature=False, rgb_activate="none",
-            app_actfn=cfg.fine_app_actfn, **common)
+        self.mlp_fine = None
+        if cfg.N_importance > 0:
+            self.mlp_fine = VoxelNeRF(
+                n_voxels=cfg.fine_n_voxels, app_n_comp=cfg.fine_app_n_comp,
+                app_dim=cfg.fine_app_dim,
+                in_app_dim=cfg.coarse_app_dim + cfg.fine_app_dim,
+                num_layers=cfg.fine_num_layers,
+                hidden_dim=cfg.fine_hidden_dim,
+                geo_feat_dim=cfg.fine_geo_feat_dim,
+                num_layers_color=cfg.fine_num_layers_color,
+                hidden_dim_color=cfg.fine_hidden_dim_color,
+                composite_feature=False, rgb_activate="none",
+                app_actfn=cfg.fine_app_actfn, **common)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.mlp_coarse.parameters()).device
+
+    @property
+    def feature_dim(self) -> int:
+        """Width of the per-sample feature the render hands AWP
+        (``depth_feature``): that of the field of the last pass."""
+        last = self.mlp_fine if self.mlp_fine is not None else self.mlp_coarse
+        if self.cfg.mode == "nerf":
+            return last.feature_dim
+        return (self.cfg.fine_geo_feat_dim if self.mlp_fine is not None
+                else self.cfg.kernel_feat_cnl)
+
+    def refresh_tables(self) -> None:
+        """Repack the voxel fields' tables after their grids changed (a
+        no-op for the NeRF MLPs, which have none)."""
+        if self.cfg.mode == "c2f":
+            for field in (self.mlp_coarse, self.mlp_fine):
+                if field is not None:
+                    field.refresh_tables()
 
     def _sample_z(self, R: int, device, perturb: float,
                   generator) -> torch.Tensor:
@@ -199,7 +252,7 @@ class Renderer(nn.Module):
     def _noise(self, shape, noise_std: float, generator):
         if noise_std > 0.0:
             return torch.randn(shape, generator=generator,
-                               device=self.mlp_coarse.aabb.device) * noise_std
+                               device=self.device) * noise_std
         return None
 
     def _unpack_rays(self, rays: torch.Tensor):
@@ -231,32 +284,81 @@ class Renderer(nn.Module):
                             cfg.raw_noise_std if is_train else 0.0, generator)
         return z_vals, pts, noise
 
+    def _run_nerf_field(self, mlp, pts, viewdirs, z_vals, rays_d, noise,
+                        is_train, composite_feature):
+        """NeRF field evaluation and compositing over depth-sorted samples
+        (ref: networks/nerf.py:74-175): (rgb [R, 3], depth [R], acc [R],
+        weights [R, S], feature), the feature composited over the ray
+        (``composite_feature``) or per sample [R, S, F], or None."""
+        cfg = self.cfg
+        R, S = pts.shape[0], pts.shape[1]
+        pts_pe = positional_encoding(pts.reshape(R * S, 3), cfg.multires)
+        views_pe = None
+        if cfg.use_viewdirs:
+            views_pe = positional_encoding(
+                viewdirs[:, None, :].expand(R, S, 3).reshape(R * S, 3),
+                cfg.multires_views)
+        raw, feature = mlp(pts_pe, views_pe)
+        raw = raw.reshape(R, S, 4)
+        rgb = ACTIVATIONS[cfg.rgb_activate](raw[..., :3])
+        rm_mask = None
+        if not is_train and cfg.render_rmnearplane > 0:
+            rm_mask = compositing.rmnearplane_mask(z_vals,
+                                                   cfg.render_rmnearplane)
+        weights = compositing.compute_weights(
+            raw[..., 3], z_vals, rays_d, ACTIVATIONS[cfg.sigma_activate],
+            noise=noise, rmnearplane_mask=rm_mask)
+        rgb_map, depth_map, acc_map = compositing.composite(
+            weights, rgb, z_vals, white_bkgd=cfg.white_bkgd)
+        if feature is not None:
+            feature = feature.reshape(R, S, -1)
+            if composite_feature:
+                feature = torch.sum(weights[..., None] * feature, -2)
+        return rgb_map, depth_map, acc_map, weights, feature
+
+    def _importance_z(self, z_vals, weights, perturb, generator):
+        """``N_importance`` depths drawn from the coarse weights' PDF
+        (``sample_pdf``, kernel K3 on the card)."""
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        return sample_pdf(z_mid, weights[..., 1:-1], self.cfg.N_importance,
+                          det=perturb == 0.0, generator=generator)
+
     def render_rays(self, rays_o, rays_d, viewdirs, is_train=False,
                     generator=None, want_features=False):
-        """c2f render of rays [R, 3] (already NDC if applicable).
+        """Render of rays [R, 3] (already NDC if applicable).
 
         ``is_train`` applies the config's ``perturb`` and ``raw_noise_std``
         with draws from ``generator`` (det importance draws when perturb is
         0) and drops the eval-only near-plane mask. ``want_features`` also
-        returns the fine field's per-sample features in depth order
+        returns the last pass's per-sample features in depth order
         (``depth_feature``, for AWP). Returns a dict with
-        rgb_map/depth_map/acc_map, the coarse rgb0/depth0/acc0, the fine
-        weights and sorted z_vals.
+        rgb_map/depth_map/acc_map, the last pass's weights and sorted
+        z_vals and, with an importance pass, the coarse rgb0/depth0/acc0
+        and ``z_std``, the spread of the importance depths.
         """
         cfg = self.cfg
-        R = rays_o.shape[0]
         perturb = cfg.perturb if is_train else 0.0
         noise_std = cfg.raw_noise_std if is_train else 0.0
         z_vals, pts, noise_c = self._coarse_setup(rays_o, rays_d, is_train,
                                                   generator)
+        if cfg.mode == "nerf":
+            return self._render_nerf(rays_o, rays_d, viewdirs, z_vals, pts,
+                                     noise_c, is_train, perturb, noise_std,
+                                     generator, want_features)
         ft_coarse = self.mlp_coarse.sample(pts)
-        rgb0, depth0, acc0, weights, _ = self.mlp_coarse(
+        rgb0, depth0, acc0, weights, feature = self.mlp_coarse(
             pts, viewdirs, ft_coarse, z_vals, rays_d, noise=noise_c,
-            is_train=is_train)
+            is_train=is_train,
+            want_features=want_features and self.mlp_fine is None)
+        if self.mlp_fine is None:
+            ret = dict(rgb_map=rgb0, depth_map=depth0, acc_map=acc0,
+                       weights=weights, z_vals=z_vals)
+            if want_features and feature is not None:
+                ret["depth_feature"] = feature
+            return ret
 
-        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = sample_pdf(z_mid, weights[..., 1:-1], cfg.N_importance,
-                               det=perturb == 0.0, generator=generator)
+        R = rays_o.shape[0]
+        z_samples = self._importance_z(z_vals, weights, perturb, generator)
         z_cat = torch.cat([z_vals, z_samples], -1)
         z_all, perm, inv_perm = lane_shuffle.sort_with_perm(z_cat)
         pts_new = (rays_o[..., None, :]
@@ -272,8 +374,40 @@ class Renderer(nn.Module):
             is_train=is_train, perm=perm, inv_perm=inv_perm,
             want_features=want_features)
         ret = dict(rgb_map=rgb, depth_map=depth, acc_map=acc, rgb0=rgb0,
-                   depth0=depth0, acc0=acc0, weights=weights, z_vals=z_all)
+                   depth0=depth0, acc0=acc0, weights=weights, z_vals=z_all,
+                   z_std=torch.std(z_samples, -1, correction=0))
         if feature is not None:
+            ret["depth_feature"] = feature
+        return ret
+
+    def _render_nerf(self, rays_o, rays_d, viewdirs, z_vals, pts, noise_c,
+                     is_train, perturb, noise_std, generator, want_features):
+        """The ``mode=nerf`` arm of :meth:`render_rays` (ref:
+        renderer.py:129-264): the coarse MLP at the stratified depths, then
+        the fine MLP at the sorted union of those and the importance
+        depths."""
+        cfg = self.cfg
+        out = self._run_nerf_field(
+            self.mlp_coarse, pts, viewdirs, z_vals, rays_d, noise_c,
+            is_train, composite_feature=cfg.composite_feature_coarse)
+        ret = {}
+        if self.mlp_fine is not None:
+            ret.update(rgb0=out[0], depth0=out[1], acc0=out[2])
+            z_samples = self._importance_z(z_vals, out[3], perturb,
+                                           generator)
+            z_vals, _ = torch.sort(torch.cat([z_vals, z_samples], -1), -1)
+            pts = (rays_o[..., None, :]
+                   + rays_d[..., None, :] * z_vals[..., :, None])
+            noise_f = self._noise((rays_o.shape[0], z_vals.shape[-1] - 1),
+                                  noise_std, generator)
+            out = self._run_nerf_field(self.mlp_fine, pts, viewdirs, z_vals,
+                                       rays_d, noise_f, is_train,
+                                       composite_feature=False)
+            ret["z_std"] = torch.std(z_samples, -1, correction=0)
+        rgb, depth, acc, weights, feature = out
+        ret.update(rgb_map=rgb, depth_map=depth, acc_map=acc, weights=weights,
+                   z_vals=z_vals)
+        if want_features and feature is not None:
             ret["depth_feature"] = feature
         return ret
 
@@ -293,17 +427,27 @@ class Renderer(nn.Module):
                       generator=None):
         """One coarse pass over rays [R, 3, 2]: (rgb [R, 3], the coarse
         field's feature). The stage-0 render of the PBE kernel (ref:
-        renderer.py:468-592), whose CRR head composites the geometry
-        features over the ray: feature [R, kernel_feat_cnl]."""
+        renderer.py:468-592), whose coarse head composites the features
+        over the ray: feature [R, F]."""
         rays_o, rays_d, viewdirs = self._unpack_rays(rays)
         z_vals, pts, noise = self._coarse_setup(rays_o, rays_d, is_train,
                                                 generator)
+        if self.cfg.mode == "nerf":
+            rgb, _, _, _, feature = self._run_nerf_field(
+                self.mlp_coarse, pts, viewdirs, z_vals, rays_d, noise,
+                is_train, composite_feature=self.cfg.composite_feature_coarse)
+            return rgb, feature
         rgb, _, _, _, feature = self.mlp_coarse(
             pts, viewdirs, self.mlp_coarse.sample(pts), z_vals, rays_d,
             noise=noise, is_train=is_train)
         return rgb, feature
 
     def tv_loss(self) -> torch.Tensor:
-        """Grid TV regulariser x5 (ref: renderer.py:361-365)."""
-        return (self.mlp_coarse.tv_loss_app()
-                + self.mlp_fine.tv_loss_app()) * 5.0
+        """Grid TV regulariser x5 of the voxel fields (ref:
+        renderer.py:361-365); zero for the NeRF MLPs."""
+        if self.cfg.mode != "c2f":
+            return torch.zeros((), device=self.device)
+        total = self.mlp_coarse.tv_loss_app()
+        if self.mlp_fine is not None:
+            total = total + self.mlp_fine.tv_loss_app()
+        return total * 5.0

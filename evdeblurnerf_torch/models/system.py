@@ -1,5 +1,5 @@
-"""Top-level model: the c2f renderer, the blur kernel (RBK, DSK or PBE)
-and AWP.
+"""Top-level model: the renderer (c2f voxel fields or NeRF MLPs), the blur
+kernel (RBK, DSK or PBE) and AWP.
 
 Counterpart of ``evdeblurnerf_tpu/models/system.py::EvDeblurNeRF``. Like
 the reference's ``NeRFAll`` (ref: networks/renderer.py:14-626) it holds the
@@ -198,7 +198,7 @@ class EvDeblurNeRF(Renderer):
                     "Mixing PBE and AWP is not supported when "
                     "N_importance == 0 (ref renderer.py:31)")
             self.awpnet = AdaptiveWeightProposal(
-                num_motion=kcfg.ptnum - 1, input_ch=cfg.fine_geo_feat_dim,
+                num_motion=kcfg.ptnum - 1, input_ch=self.feature_dim,
                 view_cnl=view_cnl, D_sam=kcfg.awp_sam_emb_depth,
                 W_sam=kcfg.awp_sam_emb_width, D_mot=kcfg.awp_mot_emb_depth,
                 W_mot=kcfg.awp_mot_emb_width,
@@ -223,19 +223,22 @@ class EvDeblurNeRF(Renderer):
         rays [N, 3, 2]; rays_info holds ``images_idx`` [N] and, for the DSK
         and PBE kernels, ``rays_x``, ``rays_y`` [N] and ``poses`` [N, 3, 4];
         None for the naive event renders. Returns (rgb [N, 3], rgb1 [N, 3]
-        (the coarse render; for PBE its mean with the stage-0 render),
-        other_loss with ``TV`` (unless ``with_tv`` is off: the event
-        render's caller drops it) and for DSK ``align``, other_tensors with
-        ``rgb_awp`` and the pts0 renders).
+        (the coarse render; for PBE its mean with the stage-0 render; None
+        without an importance pass), other_loss with ``TV`` (the voxel
+        fields' only, ``mode=nerf`` has none; left out too where
+        ``with_tv`` is off: the event render's caller drops it) and for DSK
+        ``align``, other_tensors with ``rgb_awp`` and the pts0 renders).
         """
-        other_loss = {"TV": self.tv_loss()} if with_tv else {}
+        other_loss = ({"TV": self.tv_loss()}
+                      if with_tv and self.cfg.mode == "c2f" else {})
         other_tensors: Dict[str, torch.Tensor] = {}
         if self.kernelsnet is None or force_naive:
             ret = self.render(rays, is_train=True, generator=generator)
-            rgb, rgb1 = ret["rgb_map"], ret["rgb0"]
+            rgb, rgb1 = ret["rgb_map"], ret.get("rgb0")
             if return_pts0_rgb:
                 other_tensors["stage1_rgb_pts0"] = rgb
-                other_tensors["stage1_rgb1_pts0"] = rgb1
+                if rgb1 is not None:
+                    other_tensors["stage1_rgb1_pts0"] = rgb1
             return rgb, rgb1, other_loss, other_tensors
 
         kernel_type = self.kcfg.kernel_type
@@ -268,7 +271,8 @@ class EvDeblurNeRF(Renderer):
                           generator=generator,
                           want_features=self.awpnet is not None)
         rgb_pts = ret["rgb_map"].reshape(N, pt_num, 3)
-        rgb1_pts = ret["rgb0"].reshape(N, pt_num, 3)
+        rgb1_pts = (ret["rgb0"].reshape(N, pt_num, 3) if "rgb0" in ret
+                    else None)
         rgb = torch.sum(rgb_pts * weight1[..., None], 1)
         if self.awpnet is not None:
             ccw = self.awpnet(ret["depth_feature"], ret["z_vals"],
@@ -278,9 +282,11 @@ class EvDeblurNeRF(Renderer):
             ccw = ccw + ccw * self.awpnet.ccw_fine_scale
             ccw = ccw / torch.sum(ccw, -1, keepdim=True)
             other_tensors["rgb_awp"] = torch.sum(rgb_pts * ccw[..., None], 1)
-        rgb1 = torch.sum(rgb1_pts * weight1[..., None], 1)
-        if kernel_type == "PBE":
-            rgb1 = (rgb0_stage0 + rgb1) / 2.0
+        rgb1 = None
+        if rgb1_pts is not None:
+            rgb1 = torch.sum(rgb1_pts * weight1[..., None], 1)
+            if kernel_type == "PBE":
+                rgb1 = (rgb0_stage0 + rgb1) / 2.0
         if align is not None:
             other_loss["align"] = align.reshape(1, 1)
         other_tensors["stage1_img_embed"] = img_embed
@@ -288,7 +294,8 @@ class EvDeblurNeRF(Renderer):
             if kernel_type == "PBE":
                 other_tensors["stage0_rgb_pts0"] = rgb0_pts[:, 0]
             other_tensors["stage1_rgb_pts0"] = rgb_pts[:, 0]
-            other_tensors["stage1_rgb1_pts0"] = rgb1_pts[:, 0]
+            if rgb1_pts is not None:
+                other_tensors["stage1_rgb1_pts0"] = rgb1_pts[:, 0]
         return rgb, rgb1, other_loss, other_tensors
 
     @torch.inference_mode()

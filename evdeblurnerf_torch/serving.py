@@ -24,6 +24,7 @@ from .models.renderer import config_from_args
 from .models.system import EvDeblurNeRF
 from .models.tonemapping import CRF
 from .train import evaluate
+from .utils.convert import normalize_legacy_network_state_dict
 
 FIELD_PREFIXES = ("mlp_coarse.", "mlp_fine.")
 UNUSED_PREFIXES = ("kernelsnet.", "awpnet.")
@@ -32,13 +33,17 @@ UNUSED_PREFIXES = ("kernelsnet.", "awpnet.")
 def load_network_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The ``network_state_dict`` of a reference-format ``*.tar`` checkpoint
     (ref: run_nerf.py:617-638; also what
-    ``tools/export_reference_checkpoint.py`` writes)."""
+    ``tools/export_reference_checkpoint.py`` writes), or that of a legacy
+    two-network checkpoint of NeRF-mode fields
+    (``utils/convert.py::normalize_legacy_network_state_dict``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return ckpt["network_state_dict"]
+    legacy = normalize_legacy_network_state_dict(ckpt)
+    return legacy if legacy is not None else ckpt["network_state_dict"]
 
 
 class ServingRenderer:
-    """A c2f model with its weights and rgb CRF, rendering ray chunks."""
+    """A model (c2f or NeRF fields) with its weights and rgb CRF, rendering
+    ray chunks."""
 
     def __init__(self, model: EvDeblurNeRF, crf: CRF, chunk: int, H: int,
                  W: int, K, unused_keys=()):
@@ -51,7 +56,7 @@ class ServingRenderer:
 
     @property
     def device(self) -> torch.device:
-        return self.model.mlp_coarse.aabb.device
+        return self.model.device
 
     @torch.inference_mode()
     def __call__(self, rays: torch.Tensor):

@@ -7,10 +7,15 @@ assemble the image-ray and event batches and copy them to the device
 (``data/pipeline.py``). The loop reads a loss off the device only at the
 print and log cadences, so host and card overlap in between.
 
+``--profile_start_step`` / ``--profile_num_steps`` open a
+``torch.profiler`` window over those steps (the JAX loop's ``jax.profiler``
+window) and write it as a Chrome trace to ``--profile_dir`` or
+``<expdir>/profile``; each step in it is a ``STEP_RANGE`` range.
+
 Dropped against the JAX loop, as TPU mechanism: the device mesh and its
 shardings, the batch rounding to the mesh, the compiled-program cache and
 multi-host. Not ported yet (``config.check_supported`` raises): the fine
-and coarse culls, tensor parallelism, the trace window.
+and coarse culls, tensor parallelism.
 """
 
 from __future__ import annotations
@@ -43,6 +48,44 @@ from .step import build_train_step, compute_schedule_weights
 # the name of the profiler range around each step (a no-op without a
 # profiler), so that a trace can be cut at step boundaries
 STEP_RANGE = "train_step"
+
+
+class TraceWindow:
+    """The ``torch.profiler`` window of ``--profile_start_step`` over
+    ``--profile_num_steps`` steps, written as a Chrome trace
+    (``trace_<first step>.json``) into ``directory``."""
+
+    def __init__(self, args, expdir: str, device: torch.device):
+        self.first = args.profile_start_step
+        self.last = self.first + args.profile_num_steps - 1
+        self.directory = args.profile_dir or os.path.join(expdir, "profile")
+        self.device = device
+        self.prof = None
+
+    def before_step(self, i: int) -> None:
+        if self.first >= 0 and i == self.first:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+
+    def after_step(self, i: int, loss: torch.Tensor) -> None:
+        if self.prof is not None and i >= self.last:
+            # the last step's work must be on the device's timeline
+            loss.item()
+            self.stop()
+
+    def stop(self) -> None:
+        """End the window, wherever the run stopped, and write the trace."""
+        if self.prof is None:
+            return
+        self.prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory, f"trace_{self.first:06d}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print(f"profile trace written to {path}")
 
 
 def resolve_device(args) -> torch.device:
@@ -143,7 +186,11 @@ def run_test_renders(args, llff, model, crf, device, step, logger, expdir,
         v = compute_img_metric(rgbs, gt, metric=name)
         if v is not None:
             metrics[f"test/{name}"] = v
+    # fallback-trunk LPIPS is not comparable to published LPIPS(alex): every
+    # persisted copy (the scalars and the text file) says so
     lpips_trunk = lpips_trunk_kind() if "test/lpips" in metrics else None
+    if lpips_trunk == "fallback":
+        metrics["test/lpips_trunk_fallback"] = 1.0
     logger.scalars(metrics, step)
 
     testdir = os.path.join(expdir, f"testset_{step:06d}")
@@ -290,6 +337,7 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
     # ref run_nerf.py:417: the flags set only the INITIAL value; the 10k
     # recomputes below hardcode 0.1/0.9 upstream (flag-dead end_ratio quirk)
     fine_loss_weight = args.kernel_awp_fine_loss_start_ratio
+    trace = TraceWindow(args, expdir, device)
 
     try:
         for i in range(start, N_iters):
@@ -321,9 +369,11 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
                 w_events_egm=w_events_egm,
                 fine_loss_weight=fine_loss_weight,
                 events_active=events_active)
+            trace.before_step(i)
             with torch.profiler.record_function(STEP_RANGE):
                 aux = step_fn(state, batch, ev_batch, sw, force_naive,
                               events_active)
+            trace.after_step(i, aux["loss"])
 
             # the only reads off the device between cadences are below
             if i % args.i_print == 0 or is_last:
@@ -351,6 +401,7 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
                     args, llff, model, crf, device, i, logger,
                     skip_learn_crf=i < args.tone_mapping_start_learn_iter)
     finally:
+        trace.stop()
         img_prefetch.close()
         if ev_prefetch is not None:
             ev_prefetch.close()

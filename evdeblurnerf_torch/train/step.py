@@ -17,7 +17,10 @@ blur kernel and no AWP there. ``grad_accum`` microbatches add their
 gradients, which are then divided by their count; the AWP BatchNorm's
 running statistics carry from one microbatch to the next. Only the
 model's gradients are clipped, never the CRF's. After the optimizer step
-the fields repack their tables (``models/voxnerf.py``).
+the voxel fields repack their tables (``models/voxnerf.py``). Without an
+importance pass (``N_importance 0``) there is no coarse render ``rgb1``:
+its image, pts0 and EGM ``stage0`` terms drop out, and ``mode=nerf`` has
+no TV term, as in the JAX step.
 """
 
 from __future__ import annotations
@@ -157,6 +160,14 @@ def build_train_step(args, return_grads: bool = False):
                        if args.events_threshold_pos is not None
                        else args.events_threshold)
     egm_stages = tuple(args.add_event_egm_stages or ())
+    if (getattr(args, "add_event_egm", False) and "stage1" not in egm_stages
+            and args.N_importance <= 0):
+        # 'stage0' supervises the coarse render of the two-pass render,
+        # which does not exist with N_importance=0; the reference is as
+        # silent here (run_nerf.py:560-564), the JAX step says it
+        print("WARNING: --add_event_egm with stages", list(egm_stages),
+              "and N_importance=0: no stage matches, the event loss will be "
+              "identically zero (add 'stage1' or N_importance>0)")
     add_bii = args.tone_mapping_events_add_bii
     color_events = bool(args.event_egm_use_colorevents)
     clip_norm = args.clip_grads_norm
@@ -192,7 +203,9 @@ def build_train_step(args, return_grads: bool = False):
             generator=gen)
         target = batch["rgbsf"]
         rgb_e = enc(rgb)
-        img_loss = img2mse(rgb_e, target) + img2mse(enc(rgb1), target)
+        img_loss = img2mse(rgb_e, target)
+        if rgb1 is not None:
+            img_loss = img_loss + img2mse(enc(rgb1), target)
         aux["img_loss"] = img_loss
         aux["psnr"] = mse2psnr(img2mse(rgb_e, target))
         loss = sw.w_img * img_loss
@@ -218,8 +231,9 @@ def build_train_step(args, return_grads: bool = False):
         aux["pts0_psnr"] = mse2psnr(pts0_loss)
         loss = sw.loss_a * loss + sw.w_pts0 * pts0_loss
 
-        aux["tv_loss"] = torch.mean(extra_loss["TV"])
-        loss = loss + aux["tv_loss"] * tv_weight
+        if "TV" in extra_loss:
+            aux["tv_loss"] = torch.mean(extra_loss["TV"])
+            loss = loss + aux["tv_loss"] * tv_weight
         if "align" in extra_loss:
             aux["align_loss"] = torch.mean(extra_loss["align"])
             loss = loss + aux["align_loss"] * sw.w_align
@@ -236,7 +250,8 @@ def build_train_step(args, return_grads: bool = False):
             rgb_se, rgb1_se, _, _ = model.train_forward(
                 ev_rays, None, True, generator=gen, with_tv=False)
             s_rgb, e_rgb = rgb_se.chunk(2)
-            s_rgb1, e_rgb1 = rgb1_se.chunk(2)
+            s_rgb1, e_rgb1 = ((None, None) if rgb1_se is None
+                              else rgb1_se.chunk(2))
 
             def luma(x):
                 return crf.encode_luma(x, tonemap_only=color_events,
@@ -244,7 +259,7 @@ def build_train_step(args, return_grads: bool = False):
                                        ev_extra_feat=feat)
 
             egm = torch.zeros((), device=target.device)
-            if "stage0" in egm_stages:
+            if "stage0" in egm_stages and s_rgb1 is not None:
                 egm = egm + egm_loss(luma(s_rgb1), luma(e_rgb1), bii,
                                      color_mask=cmask,
                                      color_weight=sw.color_weight)
@@ -297,8 +312,7 @@ def build_train_step(args, return_grads: bool = False):
         set_lr(state.optimizer, state.lr_schedule(state.step))
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
-        model.mlp_coarse.refresh_tables()
-        model.mlp_fine.refresh_tables()
+        model.refresh_tables()
         state.step += 1
         return aux
 

@@ -15,7 +15,10 @@ reference's never-run ``awpnet.MAM.conv`` and the BatchNorm step counters
 are synthesised so strict loading succeeds.
 :func:`train_checkpoint_from_jax` puts both into the dictionary that
 ``train/checkpoint.py`` resumes from, so a JAX train state's weights start
-a run of the port.
+a run of the port. :func:`variables_from_state_dict` maps back: a port (or
+reference) ``network_state_dict`` to the JAX package's nested parameter
+tree, as numpy. :func:`normalize_legacy_network_state_dict` reads the
+two-network checkpoints of the DP-NeRF era (NeRF-mode fields).
 """
 
 from __future__ import annotations
@@ -176,6 +179,122 @@ def crf_state_dict_from_jax(crf_params: Mapping) -> Dict[str, torch.Tensor]:
     if unmapped:
         raise ValueError(f"cannot map CRF leaves: {sorted(unmapped)}")
     return sd
+
+
+def _unmap_key(name: str, v: np.ndarray):
+    """(JAX leaf path as a tuple, array) of one state-dict entry, or None
+    for the entries strict loading needs but the JAX tree does not hold
+    (``awpnet.MAM.conv.*``, BatchNorm step counters): the inverse of
+    :func:`_map_leaf`."""
+    if name.startswith("awpnet.MAM.conv.") or name.endswith(
+            "num_batches_tracked"):
+        return None
+
+    def kb(wb):
+        return "kernel" if wb == "weight" else "bias"
+
+    def lin(wb, v):
+        return v.T if wb == "weight" else v
+
+    m = re.match(r"^mlp_(coarse|fine)\.app_(plane|line)\.(\d)$", name)
+    if m:
+        stage, kind, i = m.groups()
+        return (("params", "renderer", f"mlp_{stage}", f"app_{kind}_{i}"),
+                v[0] if kind == "plane" else v[0, :, :, 0])
+    m = re.match(r"^mlp_(coarse|fine)\.(\w+?)(?:s?\.(\d+))?\.(weight|bias)$",
+                 name)
+    if m:
+        stage, mod, i, wb = m.groups()
+        leaf = mod if i is None else f"{mod}_{i}"
+        return (("params", "renderer", f"mlp_{stage}", leaf, kb(wb)),
+                lin(wb, v))
+    m = re.match(r"^kernelsnet\.(?:view_embed_module|img_embed)\."
+                 r"(img_embed|view_embed_linears\.(\d+)\.(weight|bias))$",
+                 name)
+    if m:
+        if m.group(2) is None:
+            return ("params", "view_embed", "img_embed"), v
+        return (("params", "view_embed", f"linear_{m.group(2)}",
+                 kb(m.group(3))), lin(m.group(3), v))
+    m = re.match(r"^kernelsnet\.([rvw])_(?:branch\.(\d+)|linear)\."
+                 r"(weight|bias)$", name)
+    if m:
+        b, i, wb = m.groups()
+        leaf = f"{b}_branch_{i}" if i is not None else f"{b}_linear"
+        return ("params", "kernelnet", leaf, kb(wb)), lin(wb, v)
+    m = re.match(r"^kernelsnet\.(pattern_pos|pattern_trans)$", name)
+    if m:
+        return ("params", "kernelnet", m.group(1)), v
+    m = re.match(r"^kernelsnet\.(linears1?)\.(\d+)\.(weight|bias)$", name)
+    if m:
+        seq, j, wb = m.groups()
+        return (("params", "kernelnet", f"{seq}_{int(j) // 2}", kb(wb)),
+                lin(wb, v))
+    m = re.match(r"^awpnet\.(sample|motion)_feature_embed_layer\.(\d+)\."
+                 r"(weight|bias)$", name)
+    if m:
+        kind, i, wb = m.groups()
+        return (("params", "awpnet", f"{kind}_feature_embed_{i}", kb(wb)),
+                lin(wb, v))
+    m = re.match(r"^awpnet\.(w_linear|MAM\.linear)\.(weight|bias)$", name)
+    if m:
+        mod, wb = m.groups()
+        return ("params", "awpnet", *mod.split("."), kb(wb)), lin(wb, v)
+    m = re.match(r"^awpnet\.MAM\.Corr\.(conva|convb|convc|convn|convl|"
+                 r"convd\.0|line_conv_att)\.weight$", name)
+    if m:
+        conv = "convd" if m.group(1) == "convd.0" else m.group(1)
+        return (("params", "awpnet", "MAM", "Corr", conv, "kernel"),
+                v.reshape(v.shape[0], v.shape[1]).T)
+    m = re.match(r"^awpnet\.MAM\.Corr\.convd\.1\.(weight|bias|running_mean|"
+                 r"running_var)$", name)
+    if m:
+        leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                "running_var": "var"}[m.group(1)]
+        col = "batch_stats" if leaf in ("mean", "var") else "params"
+        return (col, "awpnet", "MAM", "Corr", "convd_bn", leaf), v
+    raise ValueError(f"cannot map state-dict entry {name!r}")
+
+
+def variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX package's model variables (``{'params': ..., 'batch_stats':
+    ...}``, nested dicts of numpy arrays) of a reference-layout
+    ``network_state_dict``: c2f or NeRF fields, blur kernel, view embedding
+    and AWP. ``state_dict_from_jax`` of the result gives ``sd`` back."""
+    out: Dict = {"params": {}}
+    for name, t in sd.items():
+        hit = _unmap_key(name, t.detach().cpu().numpy())
+        if hit is None:
+            continue
+        path, v = hit
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(v, np.float32)
+    return out
+
+
+def normalize_legacy_network_state_dict(ckpt: Mapping):
+    """The ``network_state_dict`` of a legacy two-network checkpoint (the
+    deblur-nerf / DP-NeRF era: ``network_fn_state_dict`` for the coarse
+    MLP and ``network_fine_state_dict`` for the fine one, keys possibly
+    behind DataParallel's ``module.``), as the reference's
+    ``smart_load_state_dict`` means it (ref: utils/misc.py:196-214, whose
+    ``lstrip("module.")`` strips a character set where the prefix is
+    meant; the prefix is stripped here). None when ``ckpt`` is not such a
+    checkpoint. The counterpart of
+    ``evdeblurnerf_tpu/utils/checkpoint_convert.py``'s function."""
+    if "network_fn_state_dict" not in ckpt:
+        return None
+
+    def strip(k):
+        return k[len("module."):] if k.startswith("module.") else k
+
+    out = {f"mlp_coarse.{strip(k)}": v
+           for k, v in ckpt["network_fn_state_dict"].items()}
+    out.update({f"mlp_fine.{strip(k)}": v
+                for k, v in ckpt.get("network_fine_state_dict", {}).items()})
+    return out
 
 
 def train_checkpoint_from_jax(params: Mapping, batch_stats: Mapping = None,

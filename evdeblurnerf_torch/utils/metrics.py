@@ -4,11 +4,9 @@ Counterpart of ``evdeblurnerf_tpu/utils/metrics.py`` (ref:
 utils/metrics.py:18-100): inputs in [0, 1] are mapped to [-1, 1], an
 optional relative ``margin`` crops borders, masks restrict PSNR/SSIM to
 valid pixels. SSIM follows skimage with ``data_range=2.0`` (the [-1, 1]
-range older skimage assumed implicitly for float inputs).
-
-LPIPS is not ported yet (ROADMAP queue 1 item 21): ``compute_img_metric``
-returns ``None`` for it, which the callers treat as "metric unavailable",
-as they do in the JAX package when no scorer can be built.
+range older skimage assumed implicitly for float inputs). LPIPS runs on the
+CPU through ``models/lpips.py``'s default scorer; ``None`` means "metric
+unavailable" (no scorer could be built, or an image under 31 pixels).
 """
 
 from __future__ import annotations
@@ -63,16 +61,42 @@ def structural_similarity(im1: np.ndarray, im2: np.ndarray,
     return float(interior.mean()), S
 
 
+_lpips_scorer = None
+_lpips_failed = False
+
+
+def _get_lpips():
+    global _lpips_scorer, _lpips_failed
+    if _lpips_scorer is not None or _lpips_failed:
+        return _lpips_scorer
+    try:
+        from ..models.lpips import LPIPSScorer
+
+        # always usable: an ImageNet bundle, else the documented
+        # deterministic-trunk fallback (warns once)
+        _lpips_scorer = LPIPSScorer.from_default()
+    except Exception:
+        _lpips_failed = True
+    return _lpips_scorer
+
+
 def lpips_trunk_kind() -> Optional[str]:
-    """Which AlexNet trunk the LPIPS scorer runs on; ``None`` while there
-    is no scorer (module docstring)."""
-    return None
+    """Which AlexNet trunk the LPIPS scorer runs on: ``"pretrained"``
+    (ImageNet weights, published-comparable LPIPS(alex)), ``"fallback"``
+    (the deterministic fixed-seed trunk: self-consistent, NOT comparable to
+    published numbers) or ``None`` (no scorer). Whoever persists lpips
+    values records this beside them."""
+    scorer = _get_lpips()
+    if scorer is None:
+        return None
+    return "pretrained" if scorer.pretrained_trunk else "fallback"
 
 
 def compute_img_metric(im1, im2, metric: str = "mse", margin: float = 0,
                        mask: Optional[np.ndarray] = None):
     """im1/im2: [H, W, 3] or [B, H, W, 3] in [0, 1]. Returns a python float
-    (averaged over the batch), or None for lpips."""
+    (averaged over the batch), or None for lpips without a scorer or on
+    images under 31 pixels."""
     im1 = np.asarray(im1, np.float32)
     im2 = np.asarray(im2, np.float32)
     if im1.ndim == 3:
@@ -114,7 +138,15 @@ def compute_img_metric(im1, im2, metric: str = "mse", margin: float = 0,
             if mask is not None:
                 v = (ssim_map * mask[i]).sum() / mask[i].sum()
         elif metric == "lpips":
-            return None
+            scorer = _get_lpips()
+            if scorer is None:
+                return None
+            if min(a.shape[0], a.shape[1]) < 31:
+                # AlexNet's stride chain leaves the fifth tap empty below
+                # 31 px and the distance NaN (so does the reference's,
+                # networks/lpips/lpips.py:118-134)
+                return None
+            v = scorer(a, c)
         else:
             raise RuntimeError(f"metric {metric} not recognized")
         values.append(float(v))

@@ -68,3 +68,10 @@ def se3_warp_points(pts: torch.Tensor, transform: torch.Tensor
     homo = torch.cat([pts, torch.ones_like(pts[..., :1])], -1)
     warped = (transform @ homo[..., None])[..., 0]
     return warped[..., :3] / warped[..., 3:]
+
+
+def se3_warp_pose(poses: torch.Tensor, transform: torch.Tensor
+                  ) -> torch.Tensor:
+    """Compose [..., 4, 4] transforms with homogeneous poses (ref:
+    utils/rigid_warping.py:51-64)."""
+    return transform @ poses

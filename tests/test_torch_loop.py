@@ -2,7 +2,8 @@
 on the same data and weights, checkpoints, resume, render-only, and the
 loop's output helpers.
 
-Sizes: the 24 x 32 synthetic scene of tests/synthetic.py, 4+4 samples,
+Sizes: the 24 x 32 synthetic scene of tests/synthetic.py (32 x 40 where
+the loops' LPIPS is compared: AlexNet needs 31 pixels), 4+4 samples,
 8-wide fields. Tolerances: per-step ``train/loss`` within 2e-2 relative
 of the JAX loop's (the lockstep bound of tests/test_lockstep_train.py)
 and within 1e-4 at step 0, where only the forward differs; held-out
@@ -93,6 +94,13 @@ def scene(tmp_path_factory):
     return str(basedir), truth
 
 
+@pytest.fixture(scope="module")
+def scene_lpips(tmp_path_factory):
+    basedir = tmp_path_factory.mktemp("scene_lpips")
+    truth = make_synthetic_scene(str(basedir), h=32, w=40, focal=40.0)
+    return str(basedir), truth
+
+
 def _targs(scene_dir, logdir, expname="torch", **over):
     return tconfig.default_args(datadir=scene_dir, basedir=logdir,
                                 expname=expname, device="cpu",
@@ -114,11 +122,11 @@ def _scalars(path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_loop_matches_jax_loop(scene, tmp_path, variant):
+def test_loop_matches_jax_loop(scene_lpips, tmp_path, variant):
     """``evdeblurnerf_tpu.train.loop.train`` and the port's ``train`` run
     the same 10 steps on the same scene and sampler seeds from one JAX
     init, carried across as a step-0 checkpoint the port resumes from."""
-    scene_dir, _ = scene
+    scene_dir, _ = scene_lpips
     log = str(tmp_path)
     flags = {**BASE, **VARIANTS[variant]}
     jargs = jconfig.default_args(datadir=scene_dir, basedir=log,
@@ -153,17 +161,19 @@ def test_loop_matches_jax_loop(scene, tmp_path, variant):
         np.testing.assert_allclose(
             [got[tag][s] for s in steps], [want[tag][s] for s in steps],
             rtol=2e-2, err_msg=tag)
-    # the same scalar tags at the same steps, but for the per-parameter
-    # gradient norms (named by flax path there, by the reference's
-    # parameter names here), LPIPS, which the port does not compute yet,
-    # and the learning rate, which only the port logs
+    # the same scalar tags at the same steps, LPIPS and its fallback-trunk
+    # mark included, but for the per-parameter gradient norms (named by
+    # flax path there, by the reference's parameter names here) and the
+    # learning rate, which only the port logs
     def tags(scalars):
         return {t: sorted(v) for t, v in scalars.items()
-                if not t.startswith("test/lpips") and t != "train/lr"
+                if t != "train/lr"
                 and (not t.startswith("train/grads/")
                      or t == "train/grads/total")}
 
     assert tags(got) == tags(want)
+    assert got["test/lpips_trunk_fallback"] == \
+        want["test/lpips_trunk_fallback"] == {N_STEPS - 1: 1.0}
     assert "train/pts0_psnr" in got and "train/grads/total" in got
     if variant == "dsk_pts0":
         # while the blur loss waits, the loops print and log the PSNR of
@@ -186,8 +196,11 @@ def test_loop_matches_jax_loop(scene, tmp_path, variant):
     jm = compare_metrics.load(os.path.join(log, "jax"))
     tm = compare_metrics.load(os.path.join(log, "torch"))
     assert list(jm) == list(tm) == [N_STEPS - 1]
-    for name in ("mse", "psnr", "ssim"):
+    for name in ("mse", "psnr", "ssim", "lpips"):
         assert abs(tm[N_STEPS - 1][name] - jm[N_STEPS - 1][name]) < 1e-3, name
+    lines = [open(os.path.join(log, run, "test_metrics.txt")).read()
+             for run in ("jax", "torch")]
+    assert [ln.split("lpips_trunk=")[1] for ln in lines] == ["fallback\n"] * 2
     assert os.path.exists(os.path.join(
         log, "torch", f"testset_{N_STEPS - 1:06d}", "001.png"))
 
@@ -248,6 +261,29 @@ def test_cli_trains_resumes_and_renders(scene, tmp_path):
     # a second render does not overwrite the first
     tcli.main(_argv(scene_dir, log, render_only=True, render_test=True))
     assert os.path.isdir(outdir + "_ver1")
+
+
+def test_trace_window_writes_one_trace(scene, tmp_path):
+    """``--profile_start_step 1 --profile_num_steps 1`` over a 3-step run:
+    one Chrome trace in ``<expdir>/profile`` holding the step range; and
+    ``--profile_dir`` moves it."""
+    scene_dir, _ = scene
+    log = str(tmp_path)
+    tcli.main(_argv(scene_dir, log, N_iters=3, profile_start_step=1,
+                    profile_num_steps=1))
+    files = os.listdir(os.path.join(log, "run", "profile"))
+    assert files == ["trace_000001.json"]
+    with open(os.path.join(log, "run", "profile", files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("name") == tloop.STEP_RANGE
+              and e.get("cat") == "user_annotation"]
+    assert len(ranges) == 1
+    # a window that outlasts the run is closed and written at its end
+    tcli.main(_argv(scene_dir, log, expname="late", N_iters=2,
+                    profile_start_step=1, profile_num_steps=5,
+                    profile_dir=str(tmp_path / "traces")))
+    assert os.listdir(str(tmp_path / "traces")) == ["trace_000001.json"]
+    assert not os.path.exists(os.path.join(log, "late", "profile"))
 
 
 def test_no_reload_and_ft_path(scene, tmp_path):
@@ -447,12 +483,19 @@ def test_metrics_and_crf_on_renders_match_jax():
     for name in ("mse", "psnr", "ssim"):
         assert tmetrics.compute_img_metric(a, b, name) == \
             jmetrics.compute_img_metric(a, b, name), name
+    # AlexNet's taps need 31 pixels: no LPIPS on 24 x 32, in both
     assert tmetrics.compute_img_metric(a, b, "lpips") is None
-    assert tmetrics.lpips_trunk_kind() is None
+    assert jmetrics.compute_img_metric(a, b, "lpips") is None
+    assert tmetrics.lpips_trunk_kind() == jmetrics.lpips_trunk_kind() \
+        == "fallback"
     metrics = {"test/mse": 0.0123456, "test/psnr": 19.087654,
                "test/ssim": 0.512345}
     assert tevaluate.format_test_metrics(9, metrics) == \
         "iter 9: mse=0.01235 psnr=19.08765 ssim=0.51235\n"
+    metrics.update({"test/lpips": 0.0123456, "test/lpips_trunk_fallback": 1.0})
+    assert tevaluate.format_test_metrics(9, metrics, "fallback") == (
+        "iter 9: mse=0.01235 psnr=19.08765 ssim=0.51235 lpips=0.01235 "
+        "lpips_trunk=fallback\n")
 
     from evdeblurnerf_torch.models.tonemapping import TonemappingTransform
     crf = TonemappingTransform("gamma", "learn", 2.2,

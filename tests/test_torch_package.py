@@ -186,8 +186,7 @@ def test_default_args_and_args_txt_match_the_jax_package(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (dict(fine_cull_capacity=0.25), 17), (dict(coarse_cull_capacity=0.5), 20),
     (dict(tp_model_parallel=2), 22), (dict(multihost=True), 22),
-    (dict(triplane_bf16=True), 24), (dict(mode="nerf"), 19),
-    (dict(profile_start_step=0), 15)])
+    (dict(triplane_bf16=True), 24)])
 def test_unported_settings_raise_with_their_item(flags, item):
     """A flag that asks for what the port does not do yet parses, and the
     loop refuses it naming its ROADMAP queue-1 item; flags that only steer

@@ -293,7 +293,6 @@ def test_load_network_state_dict_reads_reference_tar(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,match", [
-    ("mode", "nerf", "item 19"),
     ("fine_cull_capacity", 0.25, "item 17"),
     ("triplane_bf16", True, "item 24"),
 ])

@@ -453,33 +453,51 @@ def _tensors(batch):
             for k, v in batch.items()}
 
 
-def _replay(path, args, crf, n_steps, sw_fn, ev_batches=None):
+def _replay_run(path, args, crf, n_steps, sw_fn, ev_batches=None):
+    """The port's train step from the recording's initial weights over
+    ``n_steps`` lockstep batches: per-step losses and EGM terms, and the
+    eval render of the oracle rays after every ``lc.RECORD_EVAL_EVERY``
+    steps, as ``lockstep_common.run_ours`` records them."""
     data = np.load(path)
     init = _nest(data, "init/")
     model = _model({"params": init["params"],
                     "batch_stats": init["batch_stats"]}, args)
-    if "crf" in init:
-        crf.load_state_dict(crf_state_dict_from_jax(init["crf"]),
+    # the recorded CRF sits under "init/crf/" outside the bracketed path
+    recorded_crf = _nest(data, "init/crf/")
+    if recorded_crf:
+        crf.load_state_dict(crf_state_dict_from_jax(recorded_crf),
                             strict=True)
     state = create_train_state(model, crf, args, torch.Generator(),
                                crf_identity_prefit=False)
     step = tstep.build_train_step(args)
     batches = [_tensors(b) for b in lc.make_batches()]
     evs = [_tensors(b) for b in ev_batches] if ev_batches else None
-    losses = []
+    eval_rays = torch.from_numpy(oc.make_inputs()[0])
+    losses, egms, evals = [], [], []
     for i in range(n_steps):
         aux = step(state, batches[i % lc.N_BATCHES],
                    evs[i % lc.N_BATCHES] if evs else None, sw_fn(i),
                    force_naive=False, events_active=evs is not None)
         losses.append(float(aux["loss"]))
+        egms.append(float(aux.get("event_egm", 0.0)))
+        if (i + 1) % lc.RECORD_EVAL_EVERY == 0:
+            with torch.inference_mode():
+                evals.append(model.eval().render(eval_rays)["rgb_map"]
+                             .numpy())
+            model.train()
     # the optimizer's in-place updates reached the tables sample() reads
     for field in (model.mlp_coarse, model.mlp_fine):
         planes, lines, _ = pack_grids(*field.grids())
         assert torch.equal(field.packed_plane_0, planes[0])
         assert torch.equal(field.packed_line_2, lines[2])
-    ref = data["losses_ref"][:n_steps]
-    rel = np.abs(np.asarray(losses) - ref) / np.maximum(ref, 1e-12)
-    return rel
+    return dict(data=data, losses=np.asarray(losses), egms=np.asarray(egms),
+                evals=evals)
+
+
+def _replay(path, args, crf, n_steps, sw_fn, ev_batches=None):
+    run = _replay_run(path, args, crf, n_steps, sw_fn, ev_batches)
+    ref = run["data"]["losses_ref"][:n_steps]
+    return np.abs(run["losses"] - ref) / np.maximum(ref, 1e-12)
 
 
 def test_lockstep_replay_matches_reference():
@@ -513,6 +531,84 @@ def test_lockstep_replay_events_matches_reference():
     assert rel.max() < 2e-2, f"max rel {rel.max():.2e} at {rel.argmax()}"
     assert rel[lc.CRF_LEARN_START - 1] < 2e-2
     assert rel[lc.CRF_LEARN_START + 1] < 2e-2
+
+
+def _ev_sw_fn(args):
+    w_egm = annealing_interpolator(
+        args.event_egm_weight, args.event_egm_weight_end,
+        args.event_egm_weight_steps, args.event_egm_weight_scheduler)
+
+    def sw_fn(i):
+        return tstep.compute_schedule_weights(
+            args, i, kernel_end_warmup_iter=-1, w_kernel=lambda s: 1.0,
+            w_pts0_target=lambda s: 0.0, w_events_egm=w_egm,
+            fine_loss_weight=lc.FINE_LOSS_WEIGHT, events_active=True)
+    return sw_fn
+
+
+def _eval_psnr(ours, ref):
+    mse = float(((ours - ref) ** 2).mean())
+    return -10 * np.log10(max(mse, 1e-12))
+
+
+@pytest.mark.slow
+def test_lockstep_replay_full_window_matches_reference():
+    """The whole recording of ``lockstep_rbk_awp.npz`` (200 steps): per-step
+    loss within 2e-2 relative of the original PyTorch code's over the
+    50-step window, and the tail checks of
+    tests/test_lockstep_train.py:104-131: the loss falls, the last 20
+    steps' mean within 30% of the reference's, the eval render after 50
+    steps above 30 dB against the reference's."""
+    sw = tstep.ScheduleWeights(cf=1.0 - lc.FINE_LOSS_WEIGHT,
+                               ff=lc.FINE_LOSS_WEIGHT)
+    data = np.load(lc.golden_path())
+    n_steps = int(data["n_steps"])
+    run = _replay_run(lc.golden_path(), lc.lockstep_args(),
+                      TonemappingTransform("none", "none"), n_steps,
+                      lambda i: sw)
+    ours, ref = run["losses"], data["losses_ref"]
+    rel = np.abs(ours[:50] - ref[:50]) / np.maximum(ref[:50], 1e-12)
+    print(f"lockstep_rbk_awp: largest relative loss difference over 50 "
+          f"steps {rel.max():.3e} at step {int(rel.argmax())}")
+    assert rel.max() < 2e-2, f"max rel {rel.max():.2e} at {rel.argmax()}"
+    assert ours[-1] < 0.6 * ours[0]
+    assert abs(ours[-20:].mean() - ref[-20:].mean()) < 0.3 * ref[-20:].mean()
+    psnr = _eval_psnr(run["evals"][0], data["evals_ref"][0])
+    print(f"lockstep_rbk_awp: eval render after 50 steps {psnr:.1f} dB")
+    assert psnr > 30.0
+
+
+@pytest.mark.slow
+def test_lockstep_replay_events_full_window_matches_reference():
+    """The whole events-on recording (150 steps): loss and EGM term within
+    2e-2 relative over the 50-step window, the learned CRF's learn start
+    (step 20) and the colour-weight gate (steps 59-63) inside the bound,
+    and the tail checks of tests/test_lockstep_train.py:134-200."""
+    args = lc.lockstep_ev_args()
+    jconfig.resolve_event_thresholds(args)
+    crf = TonemappingTransform("none", "learn", 2.2, "rec601",
+                               extra_features_event=2)
+    data = np.load(lc.golden_path_ev())
+    n_steps = int(data["n_steps"])
+    run = _replay_run(lc.golden_path_ev(), args, crf, n_steps,
+                      _ev_sw_fn(args), lc.make_ev_batches())
+    ours, ref = run["losses"], data["losses_ref"]
+    rel = np.abs(ours - ref) / np.maximum(ref, 1e-12)
+    rel_e = (np.abs(run["egms"][:50] - data["egms_ref"][:50])
+             / np.maximum(np.abs(data["egms_ref"][:50]), 1e-12))
+    print(f"lockstep_rbk_awp_events: largest relative loss difference over "
+          f"50 steps {rel[:50].max():.3e} at step {int(rel[:50].argmax())}, "
+          f"EGM term {rel_e.max():.3e} at step {int(rel_e.argmax())}")
+    assert rel[:50].max() < 2e-2, rel[:50].max()
+    assert rel_e.max() < 2e-2, rel_e.max()
+    assert rel[lc.CRF_LEARN_START - 1] < 2e-2
+    assert rel[lc.CRF_LEARN_START + 1] < 2e-2
+    assert rel[lc.CW_START - 1:lc.CW_START + 4].max() < 2e-2
+    psnr = _eval_psnr(run["evals"][0], data["evals_ref"][0])
+    print(f"lockstep_rbk_awp_events: eval render after 50 steps "
+          f"{psnr:.1f} dB")
+    assert psnr > 30.0
+    assert abs(ours[-20:].mean() - ref[-20:].mean()) < 0.3 * ref[-20:].mean()
 
 
 @pytest.mark.parametrize("luma,keep_rgb", [("rec709", False), ("avg", True)])
