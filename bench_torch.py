@@ -10,7 +10,13 @@ event CRF) and the same seeded numpy batch (1,024 x 10 RBK rays plus
 2 x 4,096 event rays). The flags are the paper's configuration file
 (``PAPER_CONFIG``) through the port's parser, with the blur kernel and the
 learned CRF live from step 0, at the exact settings every parity test pins
-(``fine_cull_capacity 0``, f32 tables, TF32 off). Three readings:
+(``fine_cull_capacity 0``, f32 tables, TF32 off). ``--fine_cull_capacity``
+and ``--coarse_cull_capacity`` read the culled path instead, both culls
+live from step 0: the step with the occupancy grid of its random weights
+built once before timing, as ``bench.py`` builds it (the culled width is a
+fixed lane budget, so the grid's content does not change the work), the
+loop with its own refreshes, and the served pose with ``--fine_cull_eval``.
+Three readings:
 
 * ``step_only``: ``train/step.py`` on one fixed batch, 3 warm-up steps, then
   ``iters`` steps between two CUDA events;
@@ -31,7 +37,8 @@ commit. ``chip_smoke.py`` builds its training flags and batch with
 
 Usage, from the root of a checkout (needs one CUDA card and nvcc):
     python3 bench_torch.py [--only step_only|loop|serve] [--iters 10]
-                           [--out FILE]
+                           [--fine_cull_capacity 0.25]
+                           [--coarse_cull_capacity 0.25] [--out FILE]
     python3 bench_torch.py --device cpu --tiny     # the same code, small
 """
 
@@ -240,10 +247,18 @@ def bench_step_only(args, device, iters):
     batch, ev_batch = make_train_batch(device, args.N_rand,
                                        args.events_N_rand)
     n_rays = args.N_rand * args.kernel_ptnum + 2 * args.events_N_rand
+    fine_cull = (args.fine_cull_capacity or 0.0) > 0
+    coarse_cull = (args.coarse_cull_capacity or 0.0) > 0
+    occ_grid = None
+    if coarse_cull:
+        from evdeblurnerf_torch.models.system import build_occ_grid
+
+        occ_grid = build_occ_grid(model)
 
     def one():
         return step(state, batch, ev_batch, sw_of(state.step), False,
-                    True)["loss"]
+                    True, fine_cull=fine_cull, coarse_cull=coarse_cull,
+                    occ_grid=occ_grid)["loss"]
 
     losses = [float(one()) for _ in range(WARMUP_STEPS)]
     _sync(device)
@@ -382,12 +397,26 @@ def _commit():
     return rev.stdout.strip() if rev.returncode == 0 else None
 
 
+def cull_overrides(fine_cull_capacity=0.0, coarse_cull_capacity=0.0):
+    """Flags that turn the culls on from step 0 (module docstring); none
+    for capacities of 0, so the readings stay the exact path."""
+    out = {}
+    if fine_cull_capacity > 0:
+        out.update(fine_cull_capacity=fine_cull_capacity,
+                   fine_cull_start_iter=0, fine_cull_eval=True)
+    if coarse_cull_capacity > 0:
+        out.update(coarse_cull_capacity=coarse_cull_capacity,
+                   coarse_cull_start_iter=0)
+    return out
+
+
 def run(n_rand=1024, events_n_rand=4096, grad_accum=1, iters=10,
         arg_overrides=None, device="cuda", only=None, tiny=False):
     """Build the paper-scale step and read it ``only`` one way or all three
     (``READINGS``); returns the result dict that :func:`main` prints.
-    ``arg_overrides`` are flags over the paper configuration; ``tiny`` runs
-    the ``TINY`` sizes (for ``device="cpu"``)."""
+    ``arg_overrides`` are flags over the paper configuration (the culls:
+    :func:`cull_overrides`); ``tiny`` runs the ``TINY`` sizes (for
+    ``device="cpu"``)."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -435,14 +464,21 @@ def main(argv=None):
     ap.add_argument("--n_rand", type=int, default=1024)
     ap.add_argument("--events_n_rand", type=int, default=4096)
     ap.add_argument("--grad_accum", type=int, default=1)
+    ap.add_argument("--fine_cull_capacity", type=float, default=0.0,
+                    help="read the transmittance fine cull at this "
+                         "capacity (default 0: the exact path)")
+    ap.add_argument("--coarse_cull_capacity", type=float, default=0.0,
+                    help="read the occupancy coarse cull at this capacity "
+                         "(default 0)")
     ap.add_argument("--tiny", action="store_true",
                     help="the same code at a small size, for --device cpu")
     ap.add_argument("--out", metavar="FILE", default=None,
                     help="also write the JSON line to FILE")
     opts = ap.parse_args(argv)
     result = run(opts.n_rand, opts.events_n_rand, opts.grad_accum,
-                 opts.iters, device=opts.device, only=opts.only,
-                 tiny=opts.tiny)
+                 opts.iters, cull_overrides(opts.fine_cull_capacity,
+                                            opts.coarse_cull_capacity),
+                 device=opts.device, only=opts.only, tiny=opts.tiny)
     line = json.dumps(result)
     print(line, flush=True)
     if opts.out:

@@ -122,7 +122,24 @@ kernel and case, phase 8 a few):
     ``--profile_start_step 0 --profile_num_steps 2`` that leaves a Chrome
     trace holding the step range and device activity; a 30-iteration run of
     ``tools/validate_train_torch.py --profile small`` with a finite held-out
-    PSNR and ``lpips_trunk=fallback`` in its ``test_metrics.txt``.
+    PSNR and ``lpips_trunk=fallback`` in its ``test_metrics.txt``;
+13. the fine cull and the occupancy coarse cull: (a) the paper step at full
+    width with the fine cull 0.25 (32 of 128 fine lanes) and the coarse
+    cull 0.25 (16 of 64 coarse lanes) on the occupancy grid of its
+    weights, and the exact step on the same state, 2 warm-up steps each,
+    then blocks of 5 in turns (exact, culled, culled, exact): ms/step,
+    peak GiB, device ms a step split by kernel name, the occupancy
+    refresh's ms, the culled launches a step, every loss finite and every
+    training kernel launched; (b) phase 7's step with the two culls on the
+    occupancy grid of phase 6's weights, card vs CPU: the card replays the
+    CPU's selections, so the loss and gradients are held to phase 7's
+    limits, and at most 0.1% of the card's own selected positions may
+    differ from the CPU's; (c) one 480x640 pose through
+    ``serving.build_renderer`` with ``--fine_cull_eval``, beside the exact
+    render of the same weights; (d) an 8-step run through ``cli.main`` (the
+    validation tool's small profile) across the coarse start at 3 and the
+    fine start at 4, with ``train/occ_frac`` and
+    ``train/coarse_cull_active`` logged at every refresh.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -156,8 +173,10 @@ SERVE_FLAGS = dict(
     mode="c2f", N_samples=64, N_importance=64, use_viewdirs=True,
     perturb=1.0, raw_noise_std=1.0, kernel_use_awp=True,
     multires=10, multires_views=4, lindisp=False, no_ndc=False,
-    render_rmnearplane=0, rgb_add_bias=False, fine_cull_capacity=0.0,
-    triplane_bf16=False,
+    render_rmnearplane=0, rgb_add_bias=False, triplane_bf16=False,
+    # the two culls off (phase 13 turns them on through train_args)
+    fine_cull_capacity=0.0, fine_cull_eps=1e-3, coarse_cull_capacity=0.0,
+    occ_grid_size=64, occ_eps=1e-4, occ_dilate=1, occ_probe_stride=8,
     coarse_num_layers=2, coarse_num_layers_color=3, coarse_hidden_dim=64,
     coarse_hidden_dim_color=64, coarse_app_dim=32,
     coarse_app_n_comp=[64, 16, 16], coarse_n_voxels=16777248,
@@ -195,6 +214,17 @@ BENCH_STEP_TRIES = 3
 K6_PATH_GRID, K6_PATH_POINTS = (40, 36, 1024), 262_144
 GRAD_REL_TOL = 1e-5     # K5 and K6: atomics sum in another order
 TRAIN_RAYS, TRAIN_SAMPLES = 10240, 128   # the image render's fine pass
+# phase 13: the culls of the JAX package's default training path, the fine
+# cull at its JAX default and the occupancy coarse cull at the capacity of
+# the JAX package's boxes-scene screen
+CULL_FLAGS = dict(fine_cull_capacity=0.25, coarse_cull_capacity=0.25)
+CULL_SAMPLES = 32       # round(0.25 * (64 + 64)) lanes the fine pass keeps
+CULL_POS_MAX_SHARE = 1e-3   # selected positions card vs CPU
+CULL_RUN_STEPS = 8      # the cli.main run across both start iterations
+CULL_RUN_FLAGS = dict(kernel_start_iter=0, fine_cull_capacity=0.25,
+                      fine_cull_start_iter=4, coarse_cull_capacity=0.5,
+                      coarse_cull_start_iter=3, occ_refresh_every=2,
+                      occ_gate_margin=0.0)
 # phase 7: the card's training-step gradients against the CPU's; a
 # gradient element is "beyond" when it differs by more than TRAIN_GRAD_TOL
 # of its parameter's largest gradient magnitude. Inverse-CDF bin flips
@@ -354,6 +384,7 @@ def phase_kernels(dev):
         return 3 * 4 * R * S
 
     for (R, S), suffix in (((CHUNK, 128), "_eval"),
+                           ((TRAIN_RAYS, CULL_SAMPLES), "_cull"),
                            ((TRAIN_RAYS, TRAIN_SAMPLES), "")):
         x = torch_randn(dev, g, R, S)
         _, perm, inv = lane_shuffle.sort_with_perm(
@@ -390,8 +421,35 @@ def phase_kernels(dev):
         _set_bound(e, k1_bytes(TRAIN_RAYS, TRAIN_SAMPLES), 0)
     results.update(k1)
 
-    # K2: AWP's per-sample features [R, C, S] into depth order, and back
+    # K2: AWP's per-sample features [R, C, S] into depth order, and back;
+    # first at the fine cull's kept width (phase 13), then at the full one
     C = 128
+    _, perm_c, inv_c = lane_shuffle.sort_with_perm(
+        torch.rand(TRAIN_RAYS, CULL_SAMPLES, generator=g, device=dev))
+    x3 = torch_randn(dev, g, TRAIN_RAYS, C, CULL_SAMPLES).requires_grad_()
+    out3 = lane_shuffle.permute_lanes(x3, perm_c, inv_c)
+    cot3 = torch_randn(dev, g, TRAIN_RAYS, C, CULL_SAMPLES)
+    out3.backward(cot3)
+    check(torch.equal(out3, take(x3.detach(), perm_c))
+          and torch.equal(x3.grad, take(cot3, inv_c)),
+          f"K2 at [{TRAIN_RAYS}, {C}, {CULL_SAMPLES}] differs from its plain "
+          "version")
+    x3 = x3.detach()
+    k2_cull = {}
+    for name, (arg, idx, bwd) in (("permute_lanes_3d", (x3, perm_c, False)),
+                                  ("permute_lanes_3d_bwd",
+                                   (cot3, inv_c, True))):
+        idx3 = idx.long()[:, None, :].expand(-1, C, -1)
+        ms, plain_ms = ab_ms(lambda: take(arg, idx),
+                             lambda: lane_shuffle._take(arg, idx, bwd))
+        k2_cull[name] = dict(
+            ms_cull=ms, plain_ms_cull=plain_ms,
+            library_ms_cull=cuda_ms(lambda: torch.gather(arg, -1, idx3)),
+            bound_ms_cull=1e3 * 4 * (2 * TRAIN_RAYS * C * CULL_SAMPLES
+                                     + TRAIN_RAYS * CULL_SAMPLES)
+            / HBM_BYTES_PER_S,
+            shape_cull=[TRAIN_RAYS, C, CULL_SAMPLES])
+    del x3, out3, cot3
     x3 = torch_randn(dev, g, TRAIN_RAYS, C, TRAIN_SAMPLES).requires_grad_()
     out3 = lane_shuffle.permute_lanes(x3, perm, inv)
     check(torch.equal(out3, take(x3.detach(), perm)),
@@ -418,6 +476,8 @@ def phase_kernels(dev):
         "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:166", 0.0,
         ms, plain_ms, k2_bytes,
         library_ms=cuda_ms(lambda: torch.gather(cot3, -1, inv3)))
+    for name, extra in k2_cull.items():
+        results[name].update(extra)
     del x3, out3, cot3, perm3, inv3
     torch.cuda.empty_cache()
 
@@ -1061,31 +1121,78 @@ def phase_train(dev, card):
         rays_per_step=n_rays)
 
 
-def phase_train_card_vs_cpu(dev, sd, crf_sd):
+class _Selections:
+    """The culls' selections of one step, recorded on the CPU and replayed
+    on the card: the card computes its own, counts the positions that
+    differ from the CPU's, and goes on with the CPU's, so both sides take
+    the same samples and differ only by the kernels' rounding."""
+
+    def __init__(self):
+        self.picks, self.replay, self.n_pos, self.n_diff = [], None, 0, 0
+
+    def attach(self, model, replay: bool):
+        self.replay = iter(self.picks) if replay else None
+        for name in ("_cull_select", "_coarse_cull_select"):
+            setattr(model, name, functools.partial(
+                self._select, name, getattr(model, name)))
+
+    def _select(self, name, select, *a):
+        sel = select(*a)
+        if self.replay is None:
+            self.picks.append((name, sel.cpu()))
+            return sel
+        want_name, want = next(self.replay, (None, None))
+        check(want_name == name and want.shape == sel.shape,
+              f"card and CPU made different selections ({name})")
+        self.n_pos += want.numel()
+        self.n_diff += int((sel.cpu() != want).sum())
+        return want.to(sel.device)
+
+    def done(self):
+        check(self.picks and next(self.replay, None) is None,
+              "the card made fewer selections than the CPU")
+        return self.n_diff / self.n_pos
+
+
+def phase_train_card_vs_cpu(dev, sd, crf_sd, culls=None):
+    """Phase 7: one training step card vs CPU from phase 6's weights. With
+    ``culls`` (phase 13 (b)) the step takes the fine and coarse culls on
+    the occupancy grid of those weights, built on the CPU and handed to
+    both; the card replays the CPU's selections (:class:`_Selections`)."""
     import torch
 
+    from evdeblurnerf_torch.models.system import build_occ_grid
     from evdeblurnerf_torch.train import state as tstate
     from evdeblurnerf_torch.train import step as tstep
 
-    args = train_args(perturb=0.0, raw_noise_std=0.0, no_log_grads_norm=True)
+    args = train_args(perturb=0.0, raw_noise_std=0.0, no_log_grads_norm=True,
+                      **(culls or {}))
     step = tstep.build_train_step(args, return_grads=True)
     sw = tstep.schedule_weights_fn(args)(1)
+    selections = _Selections()
+    grid = None
     out = []
-    for device in (dev, torch.device("cpu")):
+    for device in (torch.device("cpu"), dev):
         model, crf = tstate.build_model(args, AABB, H, W, FOCAL, NEAR, FAR,
                                         NUM_IMAGES, device=device)
         model.load_state_dict(sd)
         crf.load_state_dict(crf_sd)
+        if culls:
+            if grid is None:
+                grid = build_occ_grid(model)
+            selections.attach(model, replay=device.type == "cuda")
         state = tstate.create_train_state(model, crf, args,
                                           torch.Generator(device=device),
                                           crf_identity_prefit=False)
         batch, ev_batch = make_train_batch(device, AB_RAYS, AB_EV_RAYS)
-        aux = step(state, batch, ev_batch, sw, False, True)
+        aux = step(state, batch, ev_batch, sw, False, True,
+                   fine_cull=bool(culls), coarse_cull=bool(culls),
+                   occ_grid=None if grid is None else grid.to(device))
         out.append((float(aux["loss"]),
                     {n: g.cpu() for n, g in aux["grads"].items()}))
         del state, model, crf, aux
         torch.cuda.empty_cache()
-    (loss_card, g_card), (loss_cpu, g_cpu) = out
+    (loss_cpu, g_cpu), (loss_card, g_card) = out
     check(set(g_card) == set(g_cpu), "card and CPU differ in which "
           "parameters have a gradient")
     rel_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
@@ -1099,7 +1206,17 @@ def phase_train_card_vs_cpu(dev, sd, crf_sd):
     share = beyond / total
     worst = max(rel.values())
     top = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
-    print(f"[7 train card vs cpu] {AB_RAYS}x{args.kernel_ptnum} + "
+    label = "[7 train card vs cpu]"
+    result = dict(rel_loss=rel_loss, max_rel_grad=worst, share_beyond=share)
+    if culls:
+        result["pos_share_differing"] = selections.done()
+        label = (f"[13 cull] culled step (fine {args.fine_cull_capacity}, "
+                 f"coarse {args.coarse_cull_capacity}, occupied share "
+                 f"{float(grid.mean()):.4f}), the card replaying the CPU's "
+                 f"selections, of whose {selections.n_pos} positions the "
+                 f"card's own differ at {selections.n_diff} "
+                 f"({result['pos_share_differing']:.2e});")
+    print(f"{label} {AB_RAYS}x{args.kernel_ptnum} + "
           f"2x{AB_EV_RAYS} rays, perturb 0, no sigma noise: loss "
           f"{loss_card:.7g} vs {loss_cpu:.7g} (rel {rel_loss:.2e}); over "
           f"{len(g_cpu)} parameters, max |card - cpu| / max|cpu| "
@@ -1110,7 +1227,11 @@ def phase_train_card_vs_cpu(dev, sd, crf_sd):
           f"loss differs by {rel_loss:.2e} relative")
     check(share <= TRAIN_GRAD_MAX_SHARE,
           f"{share:.2e} of gradient elements beyond {TRAIN_GRAD_TOL}")
-    return dict(rel_loss=rel_loss, max_rel_grad=worst, share_beyond=share)
+    if culls:
+        check(result["pos_share_differing"] <= CULL_POS_MAX_SHARE,
+              f"{selections.n_diff} of {selections.n_pos} selected positions "
+              "differ between card and CPU")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1743,6 +1864,174 @@ def phase_nerf(dev, card):
     return launches, dict(train=train, serve=serve, lpips_rel=lpips_rel,
                           validate=validate)
 
+# ---------------------------------------------------------------------------
+# phase 13: the fine cull and the occupancy coarse cull
+# ---------------------------------------------------------------------------
+
+def _culled_paper_step(dev, card, timing):
+    """Phase 13 (a): the exact and the culled paper step on one state, in
+    turns (exact, culled, culled, exact), with the occupancy refresh
+    before the culled blocks. Returns the culled blocks' launches."""
+    import torch
+
+    from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.models.system import build_occ_grid
+    from evdeblurnerf_torch.ops.occupancy import expected_keep_fraction
+    from evdeblurnerf_torch.train import step as tstep
+
+    args = train_args(**CULL_FLAGS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model, state = _train_state(args, dev, H, W, FOCAL, NUM_IMAGES, gen)
+    step = tstep.build_train_step(args)
+    sw_of = tstep.schedule_weights_fn(args)
+    batch, ev_batch = make_train_batch(dev, args.N_rand, args.events_N_rand)
+    n_rays = args.N_rand * args.kernel_ptnum + 2 * args.events_N_rand
+    grid = build_occ_grid(model)
+    refresh_ms = cuda_ms(lambda: build_occ_grid(model), iters=5, warmup=1)
+    occ_frac = float(grid.mean())
+
+    def one(culled):
+        return step(state, batch, ev_batch, sw_of(state.step), False, True,
+                    fine_cull=culled, coarse_cull=culled, occ_grid=grid)
+
+    losses = {True: [], False: []}
+    for culled in (False, True):
+        losses[culled] += [float(one(culled)["loss"])
+                           for _ in range(TRAIN_WARMUP)]
+    ms = {True: [], False: []}
+    peak_gib = launches = None
+    for culled in (False, True, True, False):
+        torch.cuda.synchronize()
+        if culled and launches is None:
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        timed = [one(culled)["loss"] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        ms[culled].append(1e3 * (time.perf_counter() - t0) / TRAIN_STEPS)
+        if culled and launches is None:
+            launches = dict(kernels.LAUNCHES)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses[culled] += [float(v) for v in timed]
+    names = ("permute_lanes_3d", "permute_lanes", "cdf_take",
+             "triplane_fwd", "triplane_bwd")
+    device_ms = {c: timing.device_ms_by_name(lambda: one(c), names, iters=2,
+                                             warmup=0)
+                 for c in (False, True)}
+    for culled, vals in losses.items():
+        check(all(math.isfinite(v) for v in vals),
+              f"non-finite loss (culled {culled}): {vals}")
+    for name in kernels.TRAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "culled training step")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    total = {c: sum(d.values()) for c, d in device_ms.items()}
+    keep = expected_keep_fraction(occ_frac, args.occ_probe_stride)
+    print(f"[13 cull] paper step with the fine cull {args.fine_cull_capacity}"
+          f" ({CULL_SAMPLES} of 128 fine lanes) and the coarse cull "
+          f"{args.coarse_cull_capacity} ({round(args.coarse_cull_capacity * 64)}"
+          f" of 64 coarse lanes; occupancy grid {args.occ_grid_size}^3 of "
+          f"the random weights, occupied share {occ_frac:.4f}, expected kept "
+          f"share {keep:.4f}) on {card}, {TRAIN_STEPS} steps a block, in "
+          f"turns: culled {[round(v, 1) for v in ms[True]]} ms/step, exact "
+          f"{[round(v, 1) for v in ms[False]]} ms/step; culled "
+          f"{n_rays * 1e3 / min(ms[True]):.1f} train rays/s; peak "
+          f"{peak_gib:.2f} GiB (culled block); device ms/step culled "
+          f"{total[True]:.2f} {_round(device_ms[True])}, exact "
+          f"{total[False]:.2f} {_round(device_ms[False])}; occupancy refresh "
+          f"{refresh_ms:.3f} ms; culled launches per step {per_step}; losses "
+          f"culled {[round(v, 6) for v in losses[True]]}, exact "
+          f"{[round(v, 6) for v in losses[False]]}")
+    del state, model
+    torch.cuda.empty_cache()
+    return launches, dict(ms_per_step=ms, peak_gib=peak_gib,
+                          device_ms_per_step=total, refresh_ms=refresh_ms,
+                          occ_frac=occ_frac)
+
+
+def _round(d):
+    return {k: round(v, 3) for k, v in d.items()}
+
+
+def _culled_serve(dev, card):
+    """Phase 13 (c): one 480x640 pose through ``serving.build_renderer``
+    with ``--fine_cull_eval``, beside the exact render of the same
+    weights, both through ``bench_torch.bench_serve``."""
+    out = {}
+    for name, extra in (("exact", {}),
+                        ("culled", dict(fine_cull_capacity=0.25,
+                                        fine_cull_eval=True))):
+        args = train_args(chunk=CHUNK, **extra)
+        out[name] = _bench_torch().bench_serve(args, dev, H, W, FOCAL)
+    for k in ("permute_lanes", "cdf_take", "triplane_features"):
+        check(out["culled"]["launches"].get(k, 0) > 0,
+              f"kernel {k} never launched in the culled serving render")
+    print(f"[13 cull] one {H}x{W} pose with --fine_cull_eval "
+          f"({CULL_SAMPLES} of 128 fine lanes) on {card}: "
+          f"{out['culled']['eval_rays_per_s']:.1f} eval rays/s, peak "
+          f"{out['culled']['peak_gib']:.2f} GiB, device ms a chunk "
+          f"{_round(out['culled']['device_ms_per_chunk'])}; exact, same "
+          f"call: {out['exact']['eval_rays_per_s']:.1f} eval rays/s, device "
+          f"ms a chunk {_round(out['exact']['device_ms_per_chunk'])}; culled "
+          f"launches {out['culled']['launches']}")
+    return out
+
+
+def _culled_run(dev, tmp):
+    """Phase 13 (d): a short run through ``cli.main`` (the validation tool
+    at its small profile) across both cull start iterations, the grid
+    refreshed at the coarse start and every 2 steps after."""
+    from evdeblurnerf_torch import kernels
+
+    vtt = _load_tool("validate_train_torch")
+    sst = _load_tool("synthetic_scene_torch")
+    scene = os.path.join(tmp, "cscene")
+    sst.write_synthetic_scene(scene)
+    argv = ["--iters", str(CULL_RUN_STEPS), "--profile", "small", "--scene",
+            scene, "--logdir", tmp, "--expname", "cull", "--device",
+            str(dev), "--i_tensorboard", "1"]
+    for k, v in CULL_RUN_FLAGS.items():
+        argv += [f"--{k}", str(v)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    vtt.main(argv)
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    stream, _ = _metric_stream(os.path.join(tmp, "cull", "metrics.jsonl"))
+    start = CULL_RUN_FLAGS["coarse_cull_start_iter"]
+    want = list(range(start, CULL_RUN_STEPS,
+                      CULL_RUN_FLAGS["occ_refresh_every"]))
+    frac = stream.get("train/occ_frac", [])
+    active = stream.get("train/coarse_cull_active", [])
+    losses = stream.get("train/loss", [])
+    print(f"[13 cull] cli.main, {CULL_RUN_STEPS} steps across the coarse "
+          f"start {start} and the fine start "
+          f"{CULL_RUN_FLAGS['fine_cull_start_iter']} in {secs:.1f} s: "
+          f"train/occ_frac {frac}, train/coarse_cull_active {active}, losses "
+          f"{[(s, round(v, 5)) for s, v in losses]}, launches {launches}")
+    check([s for s, _ in frac] == want and [s for s, _ in active] == want,
+          f"occupancy scalars at {[s for s, _ in frac]}, expected {want}")
+    check(all(v == 1.0 for _, v in active) and all(
+        0.0 <= v <= 1.0 for _, v in frac), "occupancy scalars out of range")
+    check(len(losses) == CULL_RUN_STEPS
+          and all(math.isfinite(v) for _, v in losses),
+          f"culled run losses {losses}")
+    for name in kernels.TRAIN_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} never launched in "
+              "the culled run")
+    return dict(seconds=secs, occ_frac=frac)
+
+
+def phase_cull(dev, card, sd, crf_sd):
+    """Phase 13 (module docstring), (b) on phase 6's weights."""
+    timing = _load_tool("timing_torch")
+    launches, step = _culled_paper_step(dev, card, timing)
+    ab = phase_train_card_vs_cpu(dev, sd, crf_sd, culls=CULL_FLAGS)
+    serve = _culled_serve(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = _culled_run(dev, tmp)
+    return launches, dict(step=step, card_vs_cpu=ab, serve=serve, run=run)
+
 
 def main():
     try:
@@ -1772,12 +2061,13 @@ def main():
         torch.cuda.empty_cache()
         train_launches, sd, crf_sd, step_only = phase_train(dev, card)
         phase_train_card_vs_cpu(dev, sd, crf_sd)
-        del sd, crf_sd
         loop_launches, _ = phase_loop(dev, card, step_only)
         bench_launches = phase_bench_entry()
         phase_pbe(dev, card)
         phase_bench_torch(step_only)
         nerf_launches, _ = phase_nerf(dev, card)
+        cull_launches, _ = phase_cull(dev, card, sd, crf_sd)
+        del sd, crf_sd
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                          "evdeblurnerf_tpu")]
@@ -1795,6 +2085,7 @@ def main():
                          else train_launches[name])
         r["launches_loop"] = loop_launches[name]
         r["launches_nerf"] = nerf_launches[name]
+        r["launches_cull"] = cull_launches[name]
         if name in SERVE_KERNELS:
             r["launches_serve"] = serve_launches[name]
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in

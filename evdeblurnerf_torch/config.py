@@ -19,7 +19,12 @@ What differs from the JAX package's table:
     (``triplane_bf16``, ``triplane_line_matmul`` and ``fine_cull_capacity``
     off), and ``grad_accum`` 1, since the paper step at ``grad_accum 1``
     fits one H100's 80 GB with room to spare (PERF.md). A value set on the
-    command line or in the config file wins.
+    command line or in the config file wins: ``--fine_cull_capacity 0.25``
+    trains with the transmittance fine cull as the JAX package does by
+    default. The port keeps 0 because the JAX package's own 30k-iteration
+    screens found the cull scene-sensitive (+0.41 dB on the sphere scene,
+    -0.22 dB on the boxes scene, ``PERF_NOTES.md:73-103``), until a
+    matched screen on the card says otherwise.
   * ``--device`` (``cuda`` by default): the entry points run on the card
     unless the caller asks for ``cpu``.
   * Flags that steer TPU mechanisms (``compilation_cache_dir``,
@@ -268,10 +273,10 @@ FLAG_SPEC = [
     # accepts them all; check_supported() names what it does not do yet
     _flag("fine_cull_capacity", float, PORT_DEFAULTS["fine_cull_capacity"],
           help="transmittance-culled fine sampling (0 = off, reference "
-               "behavior): per ray, the fine pass evaluates only the "
-               "capacity*(N_samples+N_importance) samples with the largest "
-               "coarse transmittance above --fine_cull_eps. Not ported yet: "
-               "a value above 0 raises"),
+               "behavior): per ray, the fine pass evaluates only "
+               "capacity*(N_samples+N_importance) samples, those whose "
+               "coarse transmittance is above --fine_cull_eps first. The "
+               "JAX package defaults 0.25; the port 0 (module docstring)"),
     _flag("fine_cull_eps", float, 1e-3,
           help="coarse-transmittance floor below which a fine-pass sample "
                "is cullable (bounds the per-ray color error)"),
@@ -282,7 +287,10 @@ FLAG_SPEC = [
           help="enable fine culling only from this iteration"),
     _flag("coarse_cull_capacity", float, 0.0,
           help="occupancy-grid culled coarse sampling (0 = off, reference "
-               "behavior). Not ported yet: a value above 0 raises"),
+               "behavior): per ray, the coarse pass evaluates only "
+               "capacity*N_samples stratified samples, those in occupied "
+               "voxels of a periodically refreshed occupancy grid plus an "
+               "every---occ_probe_stride-th-lane probe floor first"),
     _flag("coarse_cull_start_iter", int, 1000,
           help="enable coarse culling only from this iteration"),
     _flag("occ_grid_size", int, 64,
@@ -591,12 +599,6 @@ def check_supported(args: Args) -> None:
         return getattr(args, name, default) or default
 
     todo = []
-    if asks("fine_cull_capacity", 0.0) > 0:
-        todo.append(("--fine_cull_capacity > 0 (the transmittance fine "
-                     "cull)", 17))
-    if asks("coarse_cull_capacity", 0.0) > 0:
-        todo.append(("--coarse_cull_capacity > 0 (the occupancy coarse cull "
-                     "and its gate)", 20))
     if asks("tp_model_parallel", 1) > 1:
         todo.append(("--tp_model_parallel > 1", 22))
     if getattr(args, "multihost", False):
@@ -608,6 +610,14 @@ def check_supported(args: Args) -> None:
             "not ported to evdeblurnerf_torch yet: " + "; ".join(
                 f"{what} is ROADMAP queue 1 item {item}"
                 for what, item in todo))
+
+
+def eval_fine_cull(args) -> bool:
+    """Whether held-out, render-only and served renders take the fine cull:
+    ``--fine_cull_eval`` with a ``--fine_cull_capacity``, as the JAX
+    loop and serving read the two flags."""
+    return bool(getattr(args, "fine_cull_eval", False)
+                and (getattr(args, "fine_cull_capacity", 0.0) or 0.0) > 0)
 
 
 def resolve_event_thresholds(args: Args) -> Args:

@@ -1,9 +1,9 @@
 """Renderer: coarse + fine fields and the per-ray rendering pipeline.
 
 Counterpart of ``evdeblurnerf_tpu/models/renderer.py`` (ref:
-networks/renderer.py:14-626) with both culls off: stratified depths, the
-coarse field, ``sample_pdf`` importance depths, and the fine field over the
-merged set; with ``N_importance == 0`` the coarse pass alone (no ``rgb0``,
+networks/renderer.py:14-626): stratified depths, the coarse field,
+``sample_pdf`` importance depths, and the fine field over the merged set;
+with ``N_importance == 0`` the coarse pass alone (no ``rgb0``,
 ``mlp_fine`` None). The fields are the c2f PDRF voxel fields
 (``mode=c2f``) or the vanilla NeRF MLPs (``mode=nerf``,
 ``models/nerf_mlp.py``), whose fine pass evaluates the merged depths in
@@ -17,6 +17,29 @@ order, as the JAX package does: the coarse-grid features of the stratified
 depths are reused, and only the compositing scalars move to depth order
 (kernel K1). Pointwise this equals the reference's sort-then-evaluate
 (renderer.py:205-213); only the order of the final per-ray sums differs.
+
+Two culls of the JAX package, approximations with no reference
+counterpart, both off unless asked for (``RenderConfig``):
+
+* the transmittance fine cull (``fine_cull_capacity`` > 0, training from
+  ``--fine_cull_start_iter``, at eval with ``--fine_cull_eval``): the fine
+  pass evaluates only the merged samples still visible under the coarse
+  transmittance (T > ``fine_cull_eps``), ``S_keep = round(capacity *
+  (N_samples + N_importance))`` lanes a ray (at least 8), and samples the
+  coarse and fine tables again at the kept depths;
+* the occupancy coarse cull (``coarse_cull_capacity`` > 0 and an
+  occupancy grid, training only): the coarse pass evaluates only the
+  stratified samples in occupied voxels plus a probe floor,
+  ``round(capacity * N_samples)`` lanes a ray (at least 8;
+  ``ops/occupancy.py``).
+
+Both keep a fixed number of lanes a ray through
+:func:`_capacity_select_sorted`. The training draws of one render come
+from the caller's generator in this order: the stratified jitter, the
+coarse sigma noise at the width the coarse pass evaluates (after the
+coarse cull's selection; the JAX package draws at full width and again at
+the culled width), the importance draws, the fine sigma noise at the
+width the fine pass evaluates.
 """
 
 from __future__ import annotations
@@ -27,7 +50,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..ops import lane_shuffle
+from ..ops import lane_shuffle, occupancy
 from ..ops.sample_pdf import sample_pdf, unit_linspace
 from ..ops import compositing
 from ..utils.rays import get_ndc_rays
@@ -40,9 +63,9 @@ from .voxnerf import VoxelNeRF
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render/model configuration; fields and defaults mirror the
-    JAX package's ``RenderConfig``. The TPU-only fields (culls, bf16
-    tables, line matmul) are absent: :func:`config_from_args` rejects a
-    request for what the port does not do yet. ``rgb_activate``,
+    JAX package's ``RenderConfig``. The TPU-only fields (bf16 tables, line
+    matmul) are absent: :func:`config_from_args` rejects bf16 tables, which
+    the port does not do yet. ``rgb_activate``,
     ``sigma_activate``, ``white_bkgd`` and the ``net*`` widths steer the
     NeRF field only, as in the JAX package."""
 
@@ -89,6 +112,14 @@ class RenderConfig:
     fine_app_n_comp: Tuple[int, ...] = (64, 16, 16)
     fine_n_voxels: int = 134217984
     fine_app_actfn: str = "none"
+    # the two culls (module docstring); 0 is reference-exact sampling
+    fine_cull_capacity: float = 0.0
+    fine_cull_eps: float = 1e-3
+    coarse_cull_capacity: float = 0.0
+    occ_grid_size: int = 64
+    occ_eps: float = 1e-4
+    occ_dilate: int = 1
+    occ_probe_stride: int = 8
     kernel_type: str = "none"
     kernel_feat_cnl: int = 15
     use_awp: bool = False
@@ -105,14 +136,10 @@ class RenderConfig:
 def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
     """Build a RenderConfig from parsed flags and dataset-derived values.
 
-    Raises NotImplementedError for settings the port does not render yet,
-    naming the ROADMAP item that adds them, instead of rendering something
-    else: a fine cull at eval, bf16 tables.
+    Raises NotImplementedError for bf16 tables, which the port does not
+    render yet, naming the ROADMAP item that adds them, instead of
+    rendering something else.
     """
-    if (getattr(args, "fine_cull_capacity", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError(
-            "fine_cull_capacity > 0: the transmittance fine cull is "
-            "ROADMAP.md queue 1 item 17; render with --fine_cull_capacity 0")
     if getattr(args, "triplane_bf16", False):
         raise NotImplementedError(
             "triplane_bf16: the port samples f32 tables; bf16 tables are "
@@ -150,8 +177,43 @@ def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
         fine_app_n_comp=tuple(args.fine_app_n_comp or (64, 16, 16)),
         fine_n_voxels=args.fine_n_voxels,
         fine_app_actfn=args.fine_app_actfn,
+        fine_cull_capacity=args.fine_cull_capacity or 0.0,
+        fine_cull_eps=args.fine_cull_eps,
+        coarse_cull_capacity=args.coarse_cull_capacity or 0.0,
+        occ_grid_size=args.occ_grid_size, occ_eps=args.occ_eps,
+        occ_dilate=args.occ_dilate, occ_probe_stride=args.occ_probe_stride,
         kernel_type=args.kernel_type,
         kernel_feat_cnl=args.kernel_feat_cnl, use_awp=args.kernel_use_awp)
+
+
+def _capacity_select_sorted(keep_s: torch.Tensor,
+                            S_keep: int) -> torch.Tensor:
+    """Fixed-capacity selection from a keep mask [R, S] in ascending-depth
+    lane order, shared by the two culls (``evdeblurnerf_tpu/models/
+    renderer.py::_capacity_select_sorted``).
+
+    The deepest lane is always a survivor, so the compositor's pinned
+    last-alpha sample stays the ray's far sample. With more survivors than
+    ``S_keep`` the survivors are decimated evenly by depth rank (the
+    survivor of rank r is selected iff floor(r*K/n) > floor((r-1)*K/n));
+    spare capacity takes first the unselected survivors, then the
+    shallowest culled lanes. Returns int64 positions [R, S_keep] into the
+    sorted domain, ordered by (priority, depth), not by depth: the key
+    ``prio * S + pos`` is unique a lane, so any sort gives the JAX order.
+    """
+    S_all = keep_s.shape[-1]
+    keep_s = keep_s.clone()
+    keep_s[..., -1] = True
+    rank = torch.cumsum(keep_s.int(), -1)
+    n_surv = rank[..., -1:].clamp_min(1)
+    sel_s = keep_s & ((rank * S_keep) // n_surv
+                      > ((rank - 1) * S_keep) // n_surv)
+    # priority 0: decimation-selected survivors; 1: unselected survivors;
+    # 2: culled lanes
+    prio = torch.where(sel_s, 0, torch.where(keep_s, 1, 2))
+    pos = torch.arange(S_all, device=keep_s.device)
+    _, order = torch.sort(prio * S_all + pos, -1)
+    return order[..., :S_keep]
 
 
 class Renderer(nn.Module):
@@ -269,20 +331,80 @@ class Renderer(nn.Module):
                                           rays_o, rays_d)
         return rays_o, rays_d, viewdirs
 
-    def _coarse_setup(self, rays_o, rays_d, is_train, generator):
+    def _coarse_setup(self, rays_o, rays_d, is_train, generator,
+                      occ_grid=None):
         """Stratified coarse depths, their world points and the sigma
         noise: the common preamble of :meth:`render_rays` and
-        :meth:`coarse_render` (two draws from ``generator`` when training:
-        the jitter, then the noise)."""
+        :meth:`coarse_render`. With ``occ_grid`` the occupancy coarse cull
+        keeps :meth:`_coarse_cull_select`'s lanes first. Two draws from
+        ``generator`` when training: the jitter, then the noise at the
+        kept width."""
         cfg = self.cfg
         R = rays_o.shape[0]
         z_vals = self._sample_z(R, rays_o.device,
                                 cfg.perturb if is_train else 0.0, generator)
         pts = (rays_o[..., None, :]
                + rays_d[..., None, :] * z_vals[..., :, None])
-        noise = self._noise((R, cfg.N_samples - 1),
+        if occ_grid is not None:
+            z_vals = torch.gather(z_vals, -1,
+                                  self._coarse_cull_select(occ_grid, pts))
+            pts = (rays_o[..., None, :]
+                   + rays_d[..., None, :] * z_vals[..., :, None])
+        noise = self._noise((R, z_vals.shape[-1] - 1),
                             cfg.raw_noise_std if is_train else 0.0, generator)
         return z_vals, pts, noise
+
+    def _coarse_cull_grid(self, coarse_cull, occ_grid, is_train):
+        """The occupancy grid when the coarse cull applies (a c2f training
+        render asked for it, with a grid and a capacity), else None."""
+        cfg = self.cfg
+        if (coarse_cull and occ_grid is not None and cfg.mode == "c2f"
+                and cfg.coarse_cull_capacity > 0.0 and is_train):
+            return occ_grid
+        return None
+
+    @torch.no_grad()
+    def _coarse_cull_select(self, occ_grid, pts):
+        """Positions [R, Kc] in ascending depth into the stratified lanes:
+        the samples in occupied voxels, every ``occ_probe_stride``-th lane
+        (a stale grid is re-observed) and the deepest lane, brought to
+        ``Kc`` lanes by :func:`_capacity_select_sorted`
+        (``evdeblurnerf_tpu/models/renderer.py::_coarse_cull_select``)."""
+        cfg = self.cfg
+        Kc = min(cfg.N_samples, max(8, int(round(
+            cfg.coarse_cull_capacity * cfg.N_samples))))
+        occ = occupancy.lookup_bits(occ_grid,
+                                    self.mlp_coarse.normalize_coords(pts))
+        probe = (torch.arange(cfg.N_samples, device=pts.device)
+                 % max(1, cfg.occ_probe_stride)) == 0
+        keep = (occ > 0.5) | probe
+        return torch.sort(_capacity_select_sorted(keep, Kc), -1).values
+
+    @torch.no_grad()
+    def _cull_select(self, z_cat, z_coarse, weights_coarse):
+        """Lane indices [R, S_keep] into ``z_cat`` [R, S_all] (stratified ++
+        importance, unsorted) of the samples the fine cull keeps, not in
+        depth order (``evdeblurnerf_tpu/models/renderer.py::_cull_select``).
+
+        The coarse transmittance before a sample is ``T(z) = 1 - sum_j
+        w_j [z > z_coarse_j]`` over the coarse weights [R, Sc] at the
+        sorted coarse depths ``z_coarse``; a sample is kept where T >
+        ``fine_cull_eps``. The budget is a fraction of ``N_samples +
+        N_importance``, whatever an upstream coarse cull left, so the two
+        culls compose. T is the JAX package's masked sum over [R, S_all,
+        Sc], in the same order of terms: a cumulative-sum form would round
+        otherwise and could flip ``T > eps`` at the threshold.
+        """
+        cfg = self.cfg
+        S_all = z_cat.shape[-1]
+        S_keep = min(S_all, max(8, int(round(
+            cfg.fine_cull_capacity * (cfg.N_samples + cfg.N_importance)))))
+        z_sorted, perm_z, _ = lane_shuffle.sort_with_perm(z_cat)
+        occl = torch.where(z_sorted[..., :, None] > z_coarse[..., None, :],
+                           weights_coarse[..., None, :], 0.0)
+        keep_s = 1.0 - torch.sum(occl, -1) > cfg.fine_cull_eps
+        sel_pos = _capacity_select_sorted(keep_s, S_keep)
+        return torch.gather(perm_z.long(), -1, sel_pos)
 
     def _run_nerf_field(self, mlp, pts, viewdirs, z_vals, rays_d, noise,
                         is_train, composite_feature):
@@ -324,23 +446,29 @@ class Renderer(nn.Module):
                           det=perturb == 0.0, generator=generator)
 
     def render_rays(self, rays_o, rays_d, viewdirs, is_train=False,
-                    generator=None, want_features=False):
+                    generator=None, want_features=False, fine_cull=False,
+                    coarse_cull=False, occ_grid=None):
         """Render of rays [R, 3] (already NDC if applicable).
 
         ``is_train`` applies the config's ``perturb`` and ``raw_noise_std``
         with draws from ``generator`` (det importance draws when perturb is
         0) and drops the eval-only near-plane mask. ``want_features`` also
         returns the last pass's per-sample features in depth order
-        (``depth_feature``, for AWP). Returns a dict with
-        rgb_map/depth_map/acc_map, the last pass's weights and sorted
-        z_vals and, with an importance pass, the coarse rgb0/depth0/acc0
-        and ``z_std``, the spread of the importance depths.
+        (``depth_feature``, for AWP). ``fine_cull`` turns on the
+        transmittance fine cull where the config has a capacity (c2f with
+        an importance pass); ``coarse_cull`` with the occupancy grid
+        ``occ_grid`` [G*G, G] the occupancy coarse cull (c2f training
+        only). Returns a dict with rgb_map/depth_map/acc_map, the last
+        pass's weights and sorted z_vals and, with an importance pass, the
+        coarse rgb0/depth0/acc0 and ``z_std``, the spread of the importance
+        depths.
         """
         cfg = self.cfg
         perturb = cfg.perturb if is_train else 0.0
         noise_std = cfg.raw_noise_std if is_train else 0.0
-        z_vals, pts, noise_c = self._coarse_setup(rays_o, rays_d, is_train,
-                                                  generator)
+        z_vals, pts, noise_c = self._coarse_setup(
+            rays_o, rays_d, is_train, generator,
+            self._coarse_cull_grid(coarse_cull, occ_grid, is_train))
         if cfg.mode == "nerf":
             return self._render_nerf(rays_o, rays_d, viewdirs, z_vals, pts,
                                      noise_c, is_train, perturb, noise_std,
@@ -360,14 +488,22 @@ class Renderer(nn.Module):
         R = rays_o.shape[0]
         z_samples = self._importance_z(z_vals, weights, perturb, generator)
         z_cat = torch.cat([z_vals, z_samples], -1)
+        if fine_cull and cfg.fine_cull_capacity > 0.0:
+            # the kept lanes, their coarse and fine features sampled again
+            z_cat = torch.gather(z_cat, -1,
+                                 self._cull_select(z_cat, z_vals, weights))
+            pts_cat = (rays_o[..., None, :]
+                       + rays_d[..., None, :] * z_cat[..., :, None])
+            ft_cat = self.mlp_coarse.sample(pts_cat)
+        else:
+            pts_new = (rays_o[..., None, :]
+                       + rays_d[..., None, :] * z_samples[..., :, None])
+            pts_cat = (rays_o[..., None, :]
+                       + rays_d[..., None, :] * z_cat[..., :, None])
+            ft_cat = torch.cat([ft_coarse, self.mlp_coarse.sample(pts_new)],
+                               1)
         z_all, perm, inv_perm = lane_shuffle.sort_with_perm(z_cat)
-        pts_new = (rays_o[..., None, :]
-                   + rays_d[..., None, :] * z_samples[..., :, None])
-        pts_cat = (rays_o[..., None, :]
-                   + rays_d[..., None, :] * z_cat[..., :, None])
-        ft = torch.cat([torch.cat([ft_coarse, self.mlp_coarse.sample(pts_new)],
-                                  1),
-                        self.mlp_fine.sample(pts_cat)], -1)
+        ft = torch.cat([ft_cat, self.mlp_fine.sample(pts_cat)], -1)
         noise_f = self._noise((R, z_cat.shape[-1] - 1), noise_std, generator)
         rgb, depth, acc, weights, feature = self.mlp_fine(
             pts_cat, viewdirs, ft, z_all, rays_d, noise=noise_f,
@@ -412,26 +548,31 @@ class Renderer(nn.Module):
         return ret
 
     def render(self, rays: torch.Tensor, is_train=False, generator=None,
-               want_features=False):
+               want_features=False, fine_cull=False, coarse_cull=False,
+               occ_grid=None):
         """Render rays given as [R, 3, 2] (origin, direction on the last
         axis), applying viewdir normalisation and NDC; the NDC directions
-        come back as ``rays_d``."""
+        come back as ``rays_d``. The culls as in :meth:`render_rays`."""
         rays_o, rays_d, viewdirs = self._unpack_rays(rays)
         ret = self.render_rays(rays_o, rays_d, viewdirs, is_train=is_train,
                                generator=generator,
-                               want_features=want_features)
+                               want_features=want_features,
+                               fine_cull=fine_cull, coarse_cull=coarse_cull,
+                               occ_grid=occ_grid)
         ret["rays_d"] = rays_d
         return ret
 
     def coarse_render(self, rays: torch.Tensor, is_train=False,
-                      generator=None):
+                      generator=None, coarse_cull=False, occ_grid=None):
         """One coarse pass over rays [R, 3, 2]: (rgb [R, 3], the coarse
         field's feature). The stage-0 render of the PBE kernel (ref:
         renderer.py:468-592), whose coarse head composites the features
-        over the ray: feature [R, F]."""
+        over the ray: feature [R, F]. The occupancy coarse cull as in
+        :meth:`render_rays`."""
         rays_o, rays_d, viewdirs = self._unpack_rays(rays)
-        z_vals, pts, noise = self._coarse_setup(rays_o, rays_d, is_train,
-                                                generator)
+        z_vals, pts, noise = self._coarse_setup(
+            rays_o, rays_d, is_train, generator,
+            self._coarse_cull_grid(coarse_cull, occ_grid, is_train))
         if self.cfg.mode == "nerf":
             rgb, _, _, _, feature = self._run_nerf_field(
                 self.mlp_coarse, pts, viewdirs, z_vals, rays_d, noise,
@@ -441,6 +582,17 @@ class Renderer(nn.Module):
             pts, viewdirs, self.mlp_coarse.sample(pts), z_vals, rays_d,
             noise=noise, is_train=is_train)
         return rgb, feature
+
+    def coarse_sigma_grid(self) -> torch.Tensor:
+        """Raw coarse density [G, G, G] at the occupancy grid's voxel
+        centres (c2f only): the input of the occupancy refresh
+        (``ops/occupancy.py::grid_from_sigma``)."""
+        if self.cfg.mode != "c2f":
+            raise ValueError("the occupancy grid needs the c2f voxel fields")
+        centers = occupancy.voxel_centers(self.cfg.aabb,
+                                          self.cfg.occ_grid_size,
+                                          self.device)
+        return self.mlp_coarse.density(centers)
 
     def tv_loss(self) -> torch.Tensor:
         """Grid TV regulariser x5 of the voxel fields (ref:

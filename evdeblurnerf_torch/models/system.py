@@ -15,6 +15,11 @@ the order the forward runs: for PBE the stage-0 pattern jitter and the
 stage-0 coarse render's draws (depth jitter, sigma noise), then the
 kernel's pattern jitter (DSK, PBE), then the main render's (depth jitter,
 coarse sigma noise, importance draws, fine sigma noise).
+
+The two culls of ``models/renderer.py`` reach every render of a training
+forward (the PBE stage-0 pass and the event renders included), as in the
+JAX package; :func:`build_occ_grid` refreshes the occupancy grid the
+coarse cull reads.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..ops import occupancy
 from .awp import AdaptiveWeightProposal
 from .blur_dsk import DSKBlurModel
 from .blur_rbk import RigidBlurringModel
@@ -217,7 +223,9 @@ class EvDeblurNeRF(Renderer):
                       rays_info: Optional[Dict[str, torch.Tensor]],
                       force_naive: bool = True, return_pts0_rgb: bool = False,
                       generator: torch.Generator | None = None,
-                      with_tv: bool = True):
+                      with_tv: bool = True, fine_cull: bool = False,
+                      coarse_cull: bool = False,
+                      occ_grid: Optional[torch.Tensor] = None):
         """The training forward (ref: renderer.py:266-391).
 
         rays [N, 3, 2]; rays_info holds ``images_idx`` [N] and, for the DSK
@@ -228,12 +236,16 @@ class EvDeblurNeRF(Renderer):
         fields' only, ``mode=nerf`` has none; left out too where
         ``with_tv`` is off: the event render's caller drops it) and for DSK
         ``align``, other_tensors with ``rgb_awp`` and the pts0 renders).
+        ``fine_cull``, ``coarse_cull`` and ``occ_grid`` go to every render
+        (``Renderer.render_rays``).
         """
+        culls = dict(coarse_cull=coarse_cull, occ_grid=occ_grid)
         other_loss = ({"TV": self.tv_loss()}
                       if with_tv and self.cfg.mode == "c2f" else {})
         other_tensors: Dict[str, torch.Tensor] = {}
         if self.kernelsnet is None or force_naive:
-            ret = self.render(rays, is_train=True, generator=generator)
+            ret = self.render(rays, is_train=True, generator=generator,
+                              fine_cull=fine_cull, **culls)
             rgb, rgb1 = ret["rgb_map"], ret.get("rgb0")
             if return_pts0_rgb:
                 other_tensors["stage1_rgb_pts0"] = rgb
@@ -261,7 +273,7 @@ class EvDeblurNeRF(Renderer):
                     *geometry, generator=generator)
                 rgb0_flat, feats = self.coarse_render(
                     new_rays0.reshape(-1, 3, 2), is_train=True,
-                    generator=generator)
+                    generator=generator, **culls)
                 rgb0_pts = rgb0_flat.reshape(N, pt_num, 3)
                 rgb0_stage0 = torch.sum(rgb0_pts * weight0[..., None], 1)
                 feats = feats.reshape(N, pt_num, -1)
@@ -269,7 +281,8 @@ class EvDeblurNeRF(Renderer):
                 *geometry, feats=feats, generator=generator)
         ret = self.render(new_rays.reshape(-1, 3, 2), is_train=True,
                           generator=generator,
-                          want_features=self.awpnet is not None)
+                          want_features=self.awpnet is not None,
+                          fine_cull=fine_cull, **culls)
         rgb_pts = ret["rgb_map"].reshape(N, pt_num, 3)
         rgb1_pts = (ret["rgb0"].reshape(N, pt_num, 3) if "rgb0" in ret
                     else None)
@@ -299,8 +312,23 @@ class EvDeblurNeRF(Renderer):
         return rgb, rgb1, other_loss, other_tensors
 
     @torch.inference_mode()
-    def render_chunk(self, rays: torch.Tensor):
+    def render_chunk(self, rays: torch.Tensor, fine_cull: bool = False):
         """Deterministic eval render of a ray chunk [R, 3, 2] (perturb 0, no
-        sigma noise, no culls). Returns (rgb [R, 3], depth [R], acc [R])."""
-        ret = self.render(rays)
+        sigma noise, no coarse cull). ``fine_cull``: the transmittance fine
+        cull at eval too (``--fine_cull_eval``), deterministic since the
+        importance depths are. Returns (rgb [R, 3], depth [R], acc [R])."""
+        ret = self.render(rays, fine_cull=fine_cull)
         return ret["rgb_map"], ret["depth_map"], ret["acc_map"]
+
+
+@torch.no_grad()
+def build_occ_grid(model: Renderer) -> torch.Tensor:
+    """The occupancy grid [G*G, G] (f32 bits) of the current coarse field:
+    its raw density at the voxel centres, thresholded at the alpha of one
+    sample interval ``(far - near) / N_samples`` and dilated
+    (``evdeblurnerf_tpu/models/system.py::build_occ_grid``). Derived
+    state: the loop refreshes it and never checkpoints it."""
+    cfg = model.cfg
+    delta = (cfg.far - cfg.near) / cfg.N_samples
+    return occupancy.grid_from_sigma(model.coarse_sigma_grid(), delta,
+                                     cfg.occ_eps, cfg.occ_dilate)

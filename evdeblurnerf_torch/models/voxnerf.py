@@ -159,6 +159,16 @@ class VoxelNeRF(nn.Module):
         return ACTIVATIONS[self.app_actfn](feats).reshape(*shape,
                                                           self.app_dim)
 
+    def density(self, pts: torch.Tensor) -> torch.Tensor:
+        """Raw (pre-activation) sigma [...] at world pts [..., 3]: the sigma
+        head of :meth:`forward` without noise, compositing or colour (ref:
+        voxnerf.py:210-259; ``evdeblurnerf_tpu/models/voxnerf.py::
+        density``), read by the occupancy refresh."""
+        fts = self.sample(pts).reshape(-1, self.app_dim)
+        pe = positional_encoding(pts.reshape(-1, 3), self.multires)
+        h = self._mlp(self.sigma_net, torch.cat([fts, pe], -1))
+        return h[..., 0].reshape(pts.shape[:-1])
+
     def _mlp(self, layers: nn.ModuleList, h: torch.Tensor) -> torch.Tensor:
         for l, layer in enumerate(layers):
             h = layer(h)

@@ -20,6 +20,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from .config import eval_fine_cull
 from .models.renderer import config_from_args
 from .models.system import EvDeblurNeRF
 from .models.tonemapping import CRF
@@ -43,11 +44,13 @@ def load_network_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 class ServingRenderer:
     """A model (c2f or NeRF fields) with its weights and rgb CRF, rendering
-    ray chunks."""
+    ray chunks; ``fine_cull`` renders them with the transmittance fine
+    cull (``--fine_cull_eval``)."""
 
     def __init__(self, model: EvDeblurNeRF, crf: CRF, chunk: int, H: int,
-                 W: int, K, unused_keys=()):
+                 W: int, K, unused_keys=(), fine_cull: bool = False):
         self.model = model
+        self.fine_cull = bool(fine_cull)
         self.crf = crf
         self.chunk = int(chunk)
         self.H, self.W = int(H), int(W)
@@ -66,7 +69,7 @@ class ServingRenderer:
             raise ValueError(f"this renderer takes chunks of shape "
                              f"({self.chunk}, 3, 2); got {tuple(rays.shape)}")
         rgb, depth, acc = self.model.render_chunk(
-            rays.to(self.device, torch.float32))
+            rays.to(self.device, torch.float32), fine_cull=self.fine_cull)
         return self.crf(rgb), depth, acc
 
     def render_poses(self, poses, H: Optional[int] = None,
@@ -89,7 +92,9 @@ def build_renderer(args, state_dict: Mapping[str, torch.Tensor], H: int,
     ``mlp_coarse.*`` / ``mlp_fine.*`` key must match the model exactly.
     ``kernelsnet.*`` / ``awpnet.*`` keys (blur kernel, AWP) are not used
     at render time, as in the reference's render-only mode, and are listed
-    in ``unused_keys``; any other key is an error.
+    in ``unused_keys``; any other key is an error. ``--fine_cull_eval``
+    with a ``--fine_cull_capacity`` renders with the fine cull, as the
+    JAX package's serving reads the flags.
     """
     fields = {k: v for k, v in state_dict.items()
               if k.startswith(FIELD_PREFIXES)}
@@ -102,4 +107,5 @@ def build_renderer(args, state_dict: Mapping[str, torch.Tensor], H: int,
     model.load_state_dict(fields, strict=True)
     model.eval()
     crf = CRF(args.tone_mapping_type, args.tone_mapping_gamma)
-    return ServingRenderer(model, crf, args.chunk, H, W, K, unused)
+    return ServingRenderer(model, crf, args.chunk, H, W, K, unused,
+                           fine_cull=eval_fine_cull(args))

@@ -12,14 +12,25 @@ print and log cadences, so host and card overlap in between.
 window) and write it as a Chrome trace to ``--profile_dir`` or
 ``<expdir>/profile``; each step in it is a ``STEP_RANGE`` range.
 
+The culls run as in the JAX loop: the transmittance fine cull from
+``--fine_cull_start_iter`` (and in the held-out renders with
+``--fine_cull_eval``); the occupancy coarse cull from
+``--coarse_cull_start_iter``, its grid refreshed there, every
+``--occ_refresh_every`` steps after and at the first culled step after a
+resume (the grid is derived and never checkpointed), engaged only while
+the expected kept share of lanes fits ``--occ_gate_margin`` times the
+capacity; each refresh logs ``train/occ_frac`` and
+``train/coarse_cull_active``.
+
 Dropped against the JAX loop, as TPU mechanism: the device mesh and its
 shardings, the batch rounding to the mesh, the compiled-program cache and
-multi-host. Not ported yet (``config.check_supported`` raises): the fine
-and coarse culls, tensor parallelism.
+multi-host. Not ported yet (``config.check_supported`` raises): tensor
+parallelism.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -29,10 +40,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import (check_supported, resolve_event_thresholds,
-                      write_args_txt)
+from ..config import (check_supported, eval_fine_cull,
+                      resolve_event_thresholds, write_args_txt)
 from ..data import (ImageBatchSampler, LLFFDataset, LLFFEventsDataset,
                     Prefetcher, RandomEventSampler, RandomRaySampler, endless)
+from ..models.system import build_occ_grid
+from ..ops.occupancy import expected_keep_fraction
 from ..utils.logger import Logger, write_png
 from ..utils.metrics import compute_img_metric, lpips_trunk_kind
 from ..utils.misc import (annealing_interpolator,
@@ -167,7 +180,9 @@ def _image_sampler_factory(args, llff):
 def _render(args, llff, model, poses, device, render_factor: int = 0):
     """(rgbs [N, H, W, 3], depths [N, H, W]) as numpy, linear radiance."""
     model.eval()
-    rgbs, depths = render_poses(model.render_chunk, poses, llff.h, llff.w,
+    chunk_fn = functools.partial(model.render_chunk,
+                                 fine_cull=eval_fine_cull(args))
+    rgbs, depths = render_poses(chunk_fn, poses, llff.h, llff.w,
                                 llff.K, chunk=args.chunk,
                                 render_factor=render_factor, device=device)
     return rgbs.cpu().numpy(), depths.cpu().numpy()
@@ -332,6 +347,12 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
         ev_prefetch = Prefetcher(lambda: ev.batch(next(ev_iter)),
                                  device=device)
 
+    # the occupancy coarse cull: the grid is built at the cull's start and
+    # refreshed on its cadence; the gate decides at each refresh
+    occ_cull = (args.coarse_cull_capacity or 0) > 0 and args.mode == "c2f"
+    occ_grid = None
+    occ_engaged = False
+
     N_iters = args.N_iters if max_iters is None else min(args.N_iters,
                                                          start + max_iters)
     # ref run_nerf.py:417: the flags set only the INITIAL value; the 10k
@@ -343,6 +364,22 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
         for i in range(start, N_iters):
             is_last = i == N_iters - 1
             force_naive = i < args.kernel_start_iter
+            fine_cull = ((args.fine_cull_capacity or 0) > 0
+                         and i >= args.fine_cull_start_iter)
+            coarse_cull = occ_cull and i >= args.coarse_cull_start_iter
+            if coarse_cull and (occ_grid is None
+                                or (i - args.coarse_cull_start_iter)
+                                % args.occ_refresh_every == 0):
+                occ_grid = build_occ_grid(model)
+                occ_frac = float(occ_grid.mean())
+                margin = args.occ_gate_margin
+                occ_engaged = (margin <= 0.0 or expected_keep_fraction(
+                    occ_frac, args.occ_probe_stride)
+                    <= margin * args.coarse_cull_capacity)
+                logger.scalars({"train/occ_frac": occ_frac,
+                                "train/coarse_cull_active":
+                                    float(occ_engaged)}, i)
+            coarse_cull = coarse_cull and occ_engaged
             events_active = bool(
                 args.add_event_egm and ev_prefetch is not None
                 and (args.add_event_egm_startiter is None
@@ -372,7 +409,8 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
             trace.before_step(i)
             with torch.profiler.record_function(STEP_RANGE):
                 aux = step_fn(state, batch, ev_batch, sw, force_naive,
-                              events_active)
+                              events_active, fine_cull=fine_cull,
+                              coarse_cull=coarse_cull, occ_grid=occ_grid)
             trace.after_step(i, aux["loss"])
 
             # the only reads off the device between cadences are below

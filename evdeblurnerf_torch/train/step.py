@@ -20,7 +20,9 @@ model's gradients are clipped, never the CRF's. After the optimizer step
 the voxel fields repack their tables (``models/voxnerf.py``). Without an
 importance pass (``N_importance 0``) there is no coarse render ``rgb1``:
 its image, pts0 and EGM ``stage0`` terms drop out, and ``mode=nerf`` has
-no TV term, as in the JAX step.
+no TV term, as in the JAX step. The culls (``fine_cull``, and
+``coarse_cull`` with the occupancy grid) reach every render of the step,
+the event renders included.
 """
 
 from __future__ import annotations
@@ -146,9 +148,10 @@ def _microbatch(batch: Dict[str, torch.Tensor], k: int, accum: int):
 
 def build_train_step(args, return_grads: bool = False):
     """Returns ``step(state, batch, ev_batch, sw, force_naive,
-    events_active) -> metrics``: one optimizer step of ``state``
-    (``train/state.py``) on a ray batch and, when ``events_active``, an
-    event batch. ``metrics`` holds detached tensors: ``loss`` (the mean
+    events_active, fine_cull=False, coarse_cull=False, occ_grid=None) ->
+    metrics``: one optimizer step of ``state`` (``train/state.py``) on a
+    ray batch and, when ``events_active``, an event batch; ``occ_grid`` is
+    read only with ``coarse_cull``. ``metrics`` holds detached tensors: ``loss`` (the mean
     over microbatches) and the ladder's terms of the last microbatch, the
     per-parameter gradient norms unless ``no_log_grads_norm``, and with
     ``return_grads`` the raw pre-clip gradients under ``grads``."""
@@ -187,7 +190,7 @@ def build_train_step(args, return_grads: bool = False):
         return None
 
     def loss_fn(state, batch, ev_batch, sw: ScheduleWeights,
-                force_naive: bool, events_active: bool):
+                force_naive: bool, events_active: bool, culls):
         model, crf, gen = state.model, state.crf, state.generator
         aux: Dict[str, torch.Tensor] = {}
 
@@ -200,7 +203,7 @@ def build_train_step(args, return_grads: bool = False):
             if k in batch}
         rgb, rgb1, extra_loss, extra_tensor = model.train_forward(
             batch["rays"], rays_info, force_naive, return_pts0_rgb=True,
-            generator=gen)
+            generator=gen, **culls)
         target = batch["rgbsf"]
         rgb_e = enc(rgb)
         img_loss = img2mse(rgb_e, target)
@@ -248,7 +251,7 @@ def build_train_step(args, return_grads: bool = False):
             ev_rays = torch.cat([ev_batch["events_rays_start"],
                                  ev_batch["events_rays_end"]], 0)
             rgb_se, rgb1_se, _, _ = model.train_forward(
-                ev_rays, None, True, generator=gen, with_tv=False)
+                ev_rays, None, True, generator=gen, with_tv=False, **culls)
             s_rgb, e_rgb = rgb_se.chunk(2)
             s_rgb1, e_rgb1 = ((None, None) if rgb1_se is None
                               else rgb1_se.chunk(2))
@@ -273,8 +276,11 @@ def build_train_step(args, return_grads: bool = False):
         return loss, aux
 
     def step(state, batch, ev_batch, sw: ScheduleWeights, force_naive: bool,
-             events_active: bool):
+             events_active: bool, fine_cull: bool = False,
+             coarse_cull: bool = False, occ_grid=None):
         model, crf = state.model, state.crf
+        culls = dict(fine_cull=fine_cull, coarse_cull=coarse_cull,
+                     occ_grid=occ_grid if coarse_cull else None)
         model.train()
         crf.train()
         named = [(n, p) for n, p in model.named_parameters()] + [
@@ -285,7 +291,8 @@ def build_train_step(args, return_grads: bool = False):
             e = ev_batch
             if events_active and accum > 1:
                 e = _microbatch(ev_batch, k, accum)
-            loss, aux = loss_fn(state, b, e, sw, force_naive, events_active)
+            loss, aux = loss_fn(state, b, e, sw, force_naive, events_active,
+                                culls)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         grads = [(n, p.grad) for n, p in named if p.grad is not None]

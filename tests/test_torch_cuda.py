@@ -46,7 +46,8 @@ def dev():
 @pytest.mark.parametrize("rows,S,S2", [(32768, 128, 128), (1000, 8, 8),
                                        (3, 128, 64), (7, 20000, 5),
                                        (10240, 128, 128), (33, 6, 6),
-                                       (5, 10, 10)])
+                                       (5, 10, 10), (10240, 32, 32),
+                                       (8192, 32, 32)])
 def test_permute_lanes_kernel_is_exact(dev, rows, S, S2):
     g = torch.Generator(device=dev).manual_seed(rows)
     x = torch.randn(rows, S, generator=g, device=dev)
@@ -69,7 +70,7 @@ def test_permute_lanes_kernel_is_exact(dev, rows, S, S2):
 
 
 @pytest.mark.parametrize("rows,C,S", [(10240, 128, 128), (9, 3, 8),
-                                      (5, 2, 20000)])
+                                      (5, 2, 20000), (10240, 128, 32)])
 def test_permute_lanes_3d_kernel_is_exact(dev, rows, C, S):
     g = torch.Generator(device=dev).manual_seed(rows)
     x = torch.randn(rows, C, S, generator=g, device=dev, requires_grad=True)
@@ -564,8 +565,30 @@ def test_tiny_train_step_card_matches_cpu_and_uses_every_kernel(dev):
     flags), perturb 0 and no sigma noise: the card's loss (1e-5) and
     gradients against the CPU's plain versions, and every kernel
     launched."""
+    _tiny_step_card_vs_cpu(dev, {})
+
+
+def test_tiny_culled_train_step_card_matches_cpu(dev):
+    """The same step with the fine cull (8 of 32 lanes) and the occupancy
+    coarse cull (8 of 16 lanes) on the grid of the initial weights, built
+    on the CPU and handed to both, the card replaying the CPU's selections
+    (``chip_smoke._Selections``): the loss, every kernel launched, at most
+    0.1% of the card's own selected positions differing, and the fields'
+    gradients at the same limit. The blur kernel's and AWP's gradients are
+    left to ``chip_smoke.py`` phase 13, which holds them at the paper's
+    width: here, beside grids of a few thousand voxels, their initial
+    gradients (1e-13 to 1e-6) are mostly rounding, and with the culls more
+    than 1% of all gradient elements lie beyond the limit even with the
+    selections replayed."""
+    _tiny_step_card_vs_cpu(dev, dict(fine_cull_capacity=0.25,
+                                     coarse_cull_capacity=0.5),
+                           held=("mlp_coarse.", "mlp_fine."))
+
+
+def _tiny_step_card_vs_cpu(dev, culls, held=("",)):
     import chip_smoke
 
+    from evdeblurnerf_torch.models.system import build_occ_grid
     from evdeblurnerf_torch.train import state as tstate, step as tstep
 
     args = chip_smoke.train_args(
@@ -573,11 +596,12 @@ def test_tiny_train_step_card_matches_cpu_and_uses_every_kernel(dev):
         coarse_app_n_comp=[8, 4, 4], fine_app_n_comp=[8, 4, 4],
         coarse_hidden_dim=16, coarse_hidden_dim_color=16, fine_hidden_dim=32,
         fine_hidden_dim_color=32, fine_geo_feat_dim=16, N_samples=16,
-        N_importance=16, perturb=0.0, raw_noise_std=0.0)
+        N_importance=16, perturb=0.0, raw_noise_std=0.0, **culls)
     step = tstep.build_train_step(args, return_grads=True)
     sw = tstep.schedule_weights_fn(args)(1)
     aabb = ((-1.6, -1.7, -1.0), (1.7, 1.6, 1.0))
-    sd = None
+    sd = grid = None
+    selections = chip_smoke._Selections()
     results = []
     for device in (torch.device("cpu"), dev):
         model, crf = tstate.build_model(
@@ -586,14 +610,20 @@ def test_tiny_train_step_card_matches_cpu_and_uses_every_kernel(dev):
         if sd is None:   # copies: the CPU step updates its own weights
             sd = [{k: v.clone() for k, v in m.state_dict().items()}
                   for m in (model, crf)]
+            if culls:
+                grid = build_occ_grid(model)
         model.load_state_dict(sd[0])
         crf.load_state_dict(sd[1])
+        if culls:
+            selections.attach(model, replay=device.type == "cuda")
         state = tstate.create_train_state(model, crf, args,
                                           torch.Generator(device=device),
                                           crf_identity_prefit=False)
         batch, ev = chip_smoke.make_train_batch(device, 32, 16)
         kernels.reset_launches()
-        aux = step(state, batch, ev, sw, False, True)
+        aux = step(state, batch, ev, sw, False, True,
+                   fine_cull=bool(culls), coarse_cull=bool(culls),
+                   occ_grid=None if grid is None else grid.to(device))
         if device.type == "cuda":
             assert all(kernels.LAUNCHES[k] > 0
                        for k in kernels.TRAIN_KERNELS), kernels.LAUNCHES
@@ -611,7 +641,12 @@ def test_tiny_train_step_card_matches_cpu_and_uses_every_kernel(dev):
     # than 1e-3 of their parameter's largest gradient
     total = beyond = 0
     for name, want in cpu["grads"].items():
+        if not name.startswith(held):
+            continue
         diff = (card["grads"][name].cpu() - want).abs()
         beyond += int((diff > 1e-3 * float(want.abs().max())).sum())
         total += want.numel()
     assert beyond <= 0.01 * total, (beyond, total)
+    if culls:
+        assert selections.done() <= 1e-3, (selections.n_diff,
+                                           selections.n_pos)

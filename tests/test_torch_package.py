@@ -184,7 +184,6 @@ def test_default_args_and_args_txt_match_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(fine_cull_capacity=0.25), 17), (dict(coarse_cull_capacity=0.5), 20),
     (dict(tp_model_parallel=2), 22), (dict(multihost=True), 22),
     (dict(triplane_bf16=True), 24)])
 def test_unported_settings_raise_with_their_item(flags, item):
@@ -195,7 +194,8 @@ def test_unported_settings_raise_with_their_item(flags, item):
         tconfig.check_supported(tconfig.default_args(**flags))
     tconfig.check_supported(tconfig.default_args(
         compilation_cache_dir="none", matmul_precision="highest", remat=True,
-        triplane_line_matmul=True))
+        triplane_line_matmul=True, fine_cull_capacity=0.25,
+        coarse_cull_capacity=0.5))
 
 
 def test_parse_and_loop_import_load_no_jax():

@@ -293,7 +293,6 @@ def test_load_network_state_dict_reads_reference_tar(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,match", [
-    ("fine_cull_capacity", 0.25, "item 17"),
     ("triplane_bf16", True, "item 24"),
 ])
 def test_unported_settings_raise(flag, value, match):

@@ -23,6 +23,7 @@ from synthetic import make_synthetic_scene
 TOOLS = os.path.join(os.path.dirname(__file__), "..", "tools")
 sys.path.insert(0, TOOLS)
 import compare_metrics  # noqa: E402
+import collapse_rate_torch as crt  # noqa: E402
 import compare_metrics_torch as cmt  # noqa: E402
 import synthetic_scene_torch as sst  # noqa: E402
 import validate_train  # noqa: E402
@@ -189,9 +190,112 @@ def test_compare_metrics_missing_file_and_no_shared_iterations(tmp_path,
     assert "share no held-out iteration" in captured.err and not captured.out
 
 
+@pytest.mark.parametrize("a_hit,a_n,b_hit,b_n", [
+    (5, 12, 3, 12), (7, 16, 3, 14), (0, 6, 6, 6), (12, 12, 0, 12),
+    (1, 8, 5, 6), (0, 4, 0, 4), (3, 10, 3, 10)])
+def test_fisher_exact_matches_scipy(a_hit, a_n, b_hit, b_n):
+    from scipy.stats import fisher_exact
+
+    want = fisher_exact([[a_hit, a_n - a_hit], [b_hit, b_n - b_hit]]).pvalue
+    assert crt.fisher_exact_two_sided(a_hit, a_n, b_hit,
+                                      b_n) == pytest.approx(want, rel=1e-9)
+
+
+def test_collapse_rate_classifies_runs(tmp_path, capsys):
+    """Each run's PSNR at the first held-out row at or past ``at - 1``
+    (499 of a 500-iteration run, 500 of a 1000-iteration one), a collapse
+    below the threshold, the two counts and Fisher's p in the JSON line."""
+    import json
+
+    rows = {"p0": [(499, 15.4)], "p1": [(499, 24.8)],
+            "j0": [(250, 10.0), (500, 26.5), (999, 30.4)],
+            "j1": [(500, 19.99), (999, 14.0)]}
+    for name, its in rows.items():
+        os.makedirs(tmp_path / name)
+        (tmp_path / name / "test_metrics.txt").write_text("".join(
+            f"iter {it}: mse=0.1 psnr={p} ssim=0.9 lpips=0.01 "
+            "lpips_trunk=fallback\n" for it, p in its))
+    crt.main(["--a", str(tmp_path / "p0"), str(tmp_path / "p1"),
+              "--b", str(tmp_path / "j0"), str(tmp_path / "j1")])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].endswith("collapsed") and not out[1].endswith("collapsed")
+    assert "iter 500" in out[2] and out[3].endswith("collapsed")
+    got = json.loads(out[-1])
+    assert (got["a_collapsed"], got["b_collapsed"]) == (1, 1)
+    assert got["fisher_p_two_sided"] == pytest.approx(1.0)
+    with pytest.raises(SystemExit, match="no held-out row"):
+        crt.psnr_at(str(tmp_path / "p0"), 1000)
+
+
 # ---------------------------------------------------------------------------
 # the two loops on the validation scene (slow: minutes on the CPU)
 # ---------------------------------------------------------------------------
+
+def _validation_argv(tmp_path, kernel, seed, steps, every):
+    """The validation scene written at ``tmp_path / "scene"`` and the
+    run's flags at the matched small profile, exact settings pinned."""
+    scene = str(tmp_path / "scene")
+    make_synthetic_scene(scene, n_imgs=6, h=96, w=128, focal=128.0,
+                         poses_per_image=4, seed=0)
+    import argparse
+
+    ns = argparse.Namespace(logdir=str(tmp_path), scene=scene,
+                            kernel=kernel, cdavis=False)
+    return vtt.make_cli(ns, steps) + vtt.SMALL_PROFILE + [
+        "--seed", str(seed), "--i_testset", str(every), "--i_print",
+        str(max(1, steps // 10)), "--i_tensorboard", "1",
+        "--grad_accum", "1", "--triplane_bf16", "False",
+        "--triplane_line_matmul", "False", "--fine_cull_capacity", "0"]
+
+
+def _jax_initial_checkpoint(argv, path):
+    """The JAX loop's initial state for ``argv``, rebuilt as the loop
+    builds it and written at ``path`` as a step-0 checkpoint of the
+    port."""
+    import jax
+    import torch
+
+    from evdeblurnerf_torch.utils.convert import train_checkpoint_from_jax
+    from evdeblurnerf_tpu import config as jconfig
+    from evdeblurnerf_tpu.train import loop as jloop
+
+    jargs = jconfig.resolve_event_thresholds(
+        jconfig.parse_args(argv + ["--expname", "jax_init"]))
+    llff, _ = jloop.build_datasets(jargs)
+    _, _, model, crf = jloop.build_model(jargs, llff)
+    state, _ = jloop.build_initial_state(jargs, llff, model, crf)
+    state = jax.device_get(state)
+    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(train_checkpoint_from_jax(as_np(state.params),
+                                         as_np(state.batch_stats), step=0),
+               path)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", range(12))
+def test_export_jax_initial_state(tmp_path, seed):
+    """The JAX package's RBK+AWP initial state at ``seed`` on the
+    validation scene, written as ``jax_init_rbk_seed<seed>.tar`` into
+    ``EVDN_VALIDATION_INIT_OUT`` (else ``tmp_path``) without training
+    either loop, for ``tools/validate_train_torch.py --init_checkpoint``
+    on the card. The checkpoint loads strictly into the port's model."""
+    import torch
+
+    from evdeblurnerf_torch.train import loop as tloop
+
+    argv = _validation_argv(tmp_path, "rbk", seed, 500, 500)
+    out = os.environ.get("EVDN_VALIDATION_INIT_OUT") or str(tmp_path)
+    path = os.path.join(out, f"jax_init_rbk_seed{seed}.tar")
+    _jax_initial_checkpoint(argv, path)
+    args = tconfig.resolve_event_thresholds(tconfig.parse_args(
+        argv + ["--expname", "x", "--device", "cpu"]))
+    llff, _ = tloop.build_datasets(args)
+    model, crf = tloop.build_model(args, llff, torch.Generator(), "cpu")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(ckpt["network_state_dict"], strict=True)
+    assert ckpt["global_step"] == 0
+
 
 @pytest.mark.slow
 @pytest.mark.parametrize("kernel,seed", [("rbk", 0), ("rbk", 1), ("dsk", 0),
@@ -209,43 +313,19 @@ def test_validation_loop_matches_jax_loop(tmp_path, kernel, seed):
     0.5 dB. Prints both curves. With ``EVDN_VALIDATION_INIT_OUT`` set, the
     JAX initial state is also written there as
     ``jax_init_<kernel>_seed<seed>.tar``."""
-    import argparse
     import json
 
-    import jax
-    import torch
-
     from evdeblurnerf_torch import cli as tcli
-    from evdeblurnerf_torch.utils.convert import train_checkpoint_from_jax
     from evdeblurnerf_tpu import config as jconfig
     from evdeblurnerf_tpu.train import loop as jloop
 
     steps = int(os.environ.get("EVDN_VALIDATION_STEPS", "50"))
     every = int(os.environ.get("EVDN_VALIDATION_TESTSET", "25"))
-    scene = str(tmp_path / "scene")
-    make_synthetic_scene(scene, n_imgs=6, h=96, w=128, focal=128.0,
-                         poses_per_image=4, seed=0)
-    ns = argparse.Namespace(logdir=str(tmp_path), scene=scene,
-                            kernel=kernel, cdavis=False)
-    argv = vtt.make_cli(ns, steps) + vtt.SMALL_PROFILE + [
-        "--seed", str(seed), "--i_testset", str(every), "--i_print",
-        str(max(1, steps // 10)), "--i_tensorboard", "1",
-        "--grad_accum", "1", "--triplane_bf16", "False",
-        "--triplane_line_matmul", "False", "--fine_cull_capacity", "0"]
+    argv = _validation_argv(tmp_path, kernel, seed, steps, every)
     jloop.train(jconfig.parse_args(argv + ["--expname", "jax"]))
 
-    jargs = jconfig.resolve_event_thresholds(
-        jconfig.parse_args(argv + ["--expname", "jax_init"]))
-    llff, _ = jloop.build_datasets(jargs)
-    _, _, model, crf = jloop.build_model(jargs, llff)
-    state, _ = jloop.build_initial_state(jargs, llff, model, crf)
-    state = jax.device_get(state)
-    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     ckdir = tmp_path / "torch" / "checkpoints"
-    ckdir.mkdir(parents=True)
-    torch.save(train_checkpoint_from_jax(as_np(state.params),
-                                         as_np(state.batch_stats), step=0),
-               str(ckdir / "000000.tar"))
+    _jax_initial_checkpoint(argv, str(ckdir / "000000.tar"))
     if os.environ.get("EVDN_VALIDATION_INIT_OUT"):
         # the JAX package's initial state, for a card run of the port
         # (tools/validate_train_torch.py --init_checkpoint)
