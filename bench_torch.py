@@ -16,6 +16,8 @@ live from step 0: the step with the occupancy grid of its random weights
 built once before timing, as ``bench.py`` builds it (the culled width is a
 fixed lane budget, so the grid's content does not change the work), the
 loop with its own refreshes, and the served pose with ``--fine_cull_eval``.
+``--triplane_bf16`` reads them with bf16 tables (the served pose through
+the bf16 eval chain).
 Three readings:
 
 * ``step_only``: ``train/step.py`` on one fixed batch, 3 warm-up steps, then
@@ -38,7 +40,8 @@ commit. ``chip_smoke.py`` builds its training flags and batch with
 Usage, from the root of a checkout (needs one CUDA card and nvcc):
     python3 bench_torch.py [--only step_only|loop|serve] [--iters 10]
                            [--fine_cull_capacity 0.25]
-                           [--coarse_cull_capacity 0.25] [--out FILE]
+                           [--coarse_cull_capacity 0.25] [--triplane_bf16]
+                           [--out FILE]
     python3 bench_torch.py --device cpu --tiny     # the same code, small
 """
 
@@ -470,15 +473,21 @@ def main(argv=None):
     ap.add_argument("--coarse_cull_capacity", type=float, default=0.0,
                     help="read the occupancy coarse cull at this capacity "
                          "(default 0)")
+    ap.add_argument("--triplane_bf16", action="store_true",
+                    help="read the step, loop and serve with bf16 tables "
+                         "(the serve through the bf16 eval chain)")
     ap.add_argument("--tiny", action="store_true",
                     help="the same code at a small size, for --device cpu")
     ap.add_argument("--out", metavar="FILE", default=None,
                     help="also write the JSON line to FILE")
     opts = ap.parse_args(argv)
+    overrides = cull_overrides(opts.fine_cull_capacity,
+                               opts.coarse_cull_capacity)
+    if opts.triplane_bf16:
+        overrides["triplane_bf16"] = True
     result = run(opts.n_rand, opts.events_n_rand, opts.grad_accum,
-                 opts.iters, cull_overrides(opts.fine_cull_capacity,
-                                            opts.coarse_cull_capacity),
-                 device=opts.device, only=opts.only, tiny=opts.tiny)
+                 opts.iters, overrides, device=opts.device, only=opts.only,
+                 tiny=opts.tiny)
     line = json.dumps(result)
     print(line, flush=True)
     if opts.out:

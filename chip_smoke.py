@@ -139,7 +139,35 @@ kernel and case, phase 8 a few):
     render of the same weights; (d) an 8-step run through ``cli.main`` (the
     validation tool's small profile) across the coarse start at 3 and the
     fine start at 4, with ``train/occ_frac`` and
-    ``train/coarse_cull_active`` logged at every refresh.
+    ``train/coarse_cull_active`` logged at every refresh;
+14. bf16 tables (``--triplane_bf16``): (a) K4's bf16-row form at 2,097,152
+    uniform points and at the step's 1,310,720 ray-ordered points, and its
+    bf16-compute form (the bf16 eval chain) at an eval chunk's 4,194,304
+    points, each in its vector and its scalar kernel bitwise equal to its
+    plain version, and K5's bf16 form at the step's launch sizes (1,310,720
+    fine and 655,360 coarse points, uniform) and on the ray-ordered
+    stream, every gradient within 1e-5 of the plain version's largest (the
+    grid gradient exact f32, not bf16-rounded), each with its times,
+    bound and traffic floors; (b) the paper step with bf16 tables and with
+    f32 ones on one state (the tables repacked from the same grids), 2
+    warm-up steps each, then blocks of 5 in turns (f32, bf16, bf16, f32):
+    ms/step, peak GiB, device ms a step split by kernel name, the bf16
+    launches a step (K4's and K5's bf16 forms, not their f32 ones); (c)
+    phase 7's step with bf16 tables and the two culls of phase 13 (the JAX
+    package's default training path) card vs CPU, the card replaying the
+    CPU's selections, at phase 7's limits; (d) one 480x640 pose through
+    ``serving.build_renderer`` with ``--triplane_bf16`` (the bf16 eval
+    chain) beside the f32 render of phase 4's weights: eval rays/s, peak
+    and the largest and p99 pixel difference;
+15. the exported serving artifact: phase 4's model exported at the paper
+    width (``serving.export_renderer``, chunk 32,768, the gamma CRF folded,
+    packed tables) into ``build/chip_smoke/``, loaded in a fresh process
+    that imports no module of ``evdeblurnerf_torch.models`` and renders
+    one chunk through the kernels, held against the live renderer on the
+    same rays (at most 1% of rays beyond 1e-5, the rest printed), one
+    480x640 pose through the artifact and the live renderer in turns
+    (eval rays/s), the file's size, load and first-call seconds, and the
+    line of ``tools/bench_serving_torch.py``.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -559,9 +587,7 @@ def phase_kernels(dev):
         # the scalar form: the same tables with plane 1 moved 4 bytes off
         # its 16-byte boundary
         pp, pl, sizes = packed
-        buf = torch.empty(pp[1].numel() + 1, device=dev)
-        shifted = buf[1:].view(pp[1].shape).copy_(pp[1])
-        off = ([pp[0], shifted, pp[2]], pl, sizes)
+        off = ([pp[0], _shifted(pp[1]), pp[2]], pl, sizes)
         check(fused_sample._k4_mode(bench.N_COMP, (*pp, *pl))
               == fused_sample.K4_FLOAT4
               and fused_sample._k4_mode(bench.N_COMP, (*off[0], *pl))
@@ -576,7 +602,7 @@ def phase_kernels(dev):
             timing.device_ms_by_name,
             lambda: fused_sample.triplane_features(*off, xyz),
             (bench.K4_KERNEL,))[bench.K4_KERNEL]
-        del off, shifted, buf
+        del off
         rec["plain_ms"] = cuda_ms(
             lambda: triplane.triplane_features_packed(*packed, xyz), 3, 1)
         traffic = bench.k4_traffic(packed, xyz)
@@ -701,6 +727,26 @@ def phase_kernels(dev):
                                            "library_ms")})
             _set_bound(k6, k6_bytes, n * W)
         k6["cases"][case] = rec
+        if case == "bench":
+            # the "default" precision: g rounded to bf16 before the sums
+            got = line_matmul.line_grad(idx, rows, D, precision="default")
+            want = line_matmul.line_grad_plain(idx, rows, D, "default")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= GRAD_REL_TOL * scale,
+                  f"K6 line_grad precision default: max |kernel - plain| "
+                  f"{err:.3e} exceeds {GRAD_REL_TOL} x {scale:.3e}")
+            ms, plain_ms = ab_ms(
+                lambda: line_matmul.line_grad_plain(idx, rows, D, "default"),
+                lambda: line_matmul.line_grad(idx, rows, D, "default"))
+            k6["cases"]["bench_default"] = dict(
+                rec, precision="default", max_rel_err=err / scale, ms=ms,
+                plain_ms=plain_ms, device_ms=_timed(
+                    timing.device_ms_by_name,
+                    lambda: line_matmul.line_grad(idx, rows, D, "default"),
+                    (bench.K6_KERNEL,))[bench.K6_KERNEL])
+            k6["max_rel_err"] = max(k6["max_rel_err"], err / scale)
+            del got, want
         del idx, rows
         torch.cuda.empty_cache()
     # K6 on a path. The paper's line tables fit the shared memory of K5's
@@ -792,7 +838,8 @@ def _case_line(c):
                 f"{c['glue_device_ms']:.4f} ms (+ gaps); library call none; "
                 f"bound {c['bound_ms']:.4f} ms ({c['bytes']} bytes); max rel "
                 f"err {c['max_rel_err']:.2e}")
-    return (f"D = {c['D']}, W = {c['W']}, {c['points']} "
+    return (f"D = {c['D']}, W = {c['W']}, "
+            f"precision {c.get('precision', 'highest')}, {c['points']} "
             f"{_STREAMS[c['stream']]} indices: wrapper {c['ms']:.4f} ms, kernel device "
             f"{c['device_ms']:.4f} ms, library call (index_add_) "
             f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
@@ -1154,11 +1201,14 @@ class _Selections:
         return self.n_diff / self.n_pos
 
 
-def phase_train_card_vs_cpu(dev, sd, crf_sd, culls=None):
+def phase_train_card_vs_cpu(dev, sd, crf_sd, culls=None, flags=None,
+                            label=None):
     """Phase 7: one training step card vs CPU from phase 6's weights. With
     ``culls`` (phase 13 (b)) the step takes the fine and coarse culls on
     the occupancy grid of those weights, built on the CPU and handed to
-    both; the card replays the CPU's selections (:class:`_Selections`)."""
+    both; the card replays the CPU's selections (:class:`_Selections`).
+    ``flags``: more flags of the step (phase 14: bf16 tables), ``label``
+    the printed line's prefix."""
     import torch
 
     from evdeblurnerf_torch.models.system import build_occ_grid
@@ -1166,7 +1216,7 @@ def phase_train_card_vs_cpu(dev, sd, crf_sd, culls=None):
     from evdeblurnerf_torch.train import step as tstep
 
     args = train_args(perturb=0.0, raw_noise_std=0.0, no_log_grads_norm=True,
-                      **(culls or {}))
+                      **(culls or {}), **(flags or {}))
     step = tstep.build_train_step(args, return_grads=True)
     sw = tstep.schedule_weights_fn(args)(1)
     selections = _Selections()
@@ -1206,11 +1256,12 @@ def phase_train_card_vs_cpu(dev, sd, crf_sd, culls=None):
     share = beyond / total
     worst = max(rel.values())
     top = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
-    label = "[7 train card vs cpu]"
+    label = label or "[7 train card vs cpu]"
     result = dict(rel_loss=rel_loss, max_rel_grad=worst, share_beyond=share)
     if culls:
         result["pos_share_differing"] = selections.done()
-        label = (f"[13 cull] culled step (fine {args.fine_cull_capacity}, "
+        label = (f"{label if flags else '[13 cull]'} culled step (fine "
+                 f"{args.fine_cull_capacity}, "
                  f"coarse {args.coarse_cull_capacity}, occupied share "
                  f"{float(grid.mean()):.4f}), the card replaying the CPU's "
                  f"selections, of whose {selections.n_pos} positions the "
@@ -2033,6 +2084,472 @@ def phase_cull(dev, card, sd, crf_sd):
     return launches, dict(step=step, card_vs_cpu=ab, serve=serve, run=run)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: bf16 tables (--triplane_bf16)
+# ---------------------------------------------------------------------------
+
+BF16_FLAGS = dict(triplane_bf16=True)
+# K4's and K5's bf16 forms, case (bench_kernel_variants_torch.py's) and the
+# table types each reads
+BF16_K4_CASES = (("triplane_features_bf16", "bench_fine", False),
+                 ("triplane_features_bf16", "rays_fine", False),
+                 ("triplane_features_bf16_compute", "eval_fine", True))
+BF16_K5_CASES = ("step_fine", "step_coarse", "rays_fine")
+
+
+def _bf16_packed(planes, lines):
+    import torch
+
+    from evdeblurnerf_torch.ops import triplane
+
+    return triplane.pack_grids([p.to(torch.bfloat16) for p in planes],
+                               [l.to(torch.bfloat16) for l in lines])
+
+
+def _bf16_kernels(dev, g, bench, timing):
+    """Phase 14 (a): K4's two bf16 forms bitwise against their twins and
+    K5's bf16 form within 1e-5, each with its times and bound; returns
+    their kernel records (the launches are the main path's, set later)."""
+    import torch
+
+    from evdeblurnerf_torch.ops import fused_sample, triplane
+
+    records = {}
+    for name, case, compute in BF16_K4_CASES:
+        planes, lines, f32_packed, xyz = bench.k4_inputs(dev, g, case)
+        del f32_packed
+        n = xyz.shape[0]
+        n_ch = sum(p.shape[0] for p in planes)
+        # xyz read, the touched bf16 cells, the output written (f32, or
+        # bf16 under the chain)
+        nbytes = (4 * n * 3 + (2 if compute else 4) * n * n_ch
+                  + sum(_touched_bytes(p, n, 4) for p in planes) // 2
+                  + sum(_touched_bytes(ln, n, 2) for ln in lines) // 2)
+        packed = _bf16_packed(planes, lines)
+        del planes, lines
+
+        def kernel():
+            return fused_sample.triplane_features(*packed, xyz,
+                                                  compute_bf16=compute)
+
+        def plain():
+            return triplane.triplane_features_packed(*packed, xyz,
+                                                     compute_bf16=compute)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want) and got.dtype == (
+            torch.bfloat16 if compute else torch.float32),
+              f"K4 {name} {case}: differs from its plain version by "
+              f"{err:.3e}")
+        pp, pl, sizes = packed
+        off = ([pp[0], _shifted(pp[1]), pp[2]], pl, sizes)
+        check(fused_sample._k4_mode(bench.N_COMP, (*pp, *pl, got))
+              == fused_sample.K4_FLOAT4
+              and fused_sample._k4_mode(bench.N_COMP, (*off[0], *pl))
+              == fused_sample.K4_SCALAR, f"K4 {name}: the wrong form")
+        scalar = fused_sample.triplane_features(*off, xyz,
+                                                compute_bf16=compute)
+        check(torch.equal(scalar, want),
+              f"K4 {name} {case}: the scalar kernel differs from the plain "
+              "version")
+        del got, want, scalar
+        ms, plain_ms = ab_ms(plain, kernel)
+        traffic = bench.k4_traffic(packed, xyz, 2 if compute else 4)
+        rec = dict(tables="fine", points=n, stream=bench.K4_CASES[case][2],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   device_ms=_timed(timing.device_ms_by_name, kernel,
+                                    (bench.K4_KERNEL,))[bench.K4_KERNEL],
+                   scalar_device_ms=_timed(
+                       timing.device_ms_by_name,
+                       lambda: fused_sample.triplane_features(
+                           *off, xyz, compute_bf16=compute),
+                       (bench.K4_KERNEL,))[bench.K4_KERNEL],
+                   bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                   floor_distinct_ms=1e3 * traffic["distinct"]
+                   / HBM_BYTES_PER_S,
+                   floor_every_point_ms=1e3 * traffic["every_point"]
+                   / HBM_BYTES_PER_S)
+        if name not in records:
+            records[name] = _kernel_entry(
+                "fused_sample.cu", "evdeblurnerf_tpu/ops/fused_sample.py:92",
+                err, ms, plain_ms, nbytes, 11 * n_ch * n, cases={},
+                device_ms=rec["device_ms"],
+                tables="bf16 rows, f32 math and output" if not compute
+                else "bf16 rows, math and output (the bf16 eval chain)")
+        records[name]["cases"][case] = rec
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        del packed, off, pp, pl, xyz
+        torch.cuda.empty_cache()
+
+    k5 = None
+    for case in BF16_K5_CASES:
+        planes, lines, f32_packed, xyz, cot = bench.k5_inputs(dev, g, case)
+        del f32_packed
+        n = xyz.shape[0]
+        n_ch = sum(p.shape[0] for p in planes)
+        # xyz, the touched bf16 cells and the cotangent read; the f32 plane
+        # and line gradients and d(xyz) written
+        nbytes = (4 * n * (3 + n_ch)
+                  + sum(_touched_bytes(p, n, 4) for p in planes) // 2
+                  + sum(_touched_bytes(ln, n, 2) for ln in lines) // 2
+                  + 4 * sum(p.numel() for p in planes)
+                  + 4 * sum(ln.numel() for ln in lines) + 4 * n * 3)
+        packed = _bf16_packed(planes, lines)
+
+        def kernel():
+            return fused_sample.triplane_features_bwd(planes, lines, packed,
+                                                      xyz, cot)
+
+        got = kernel()
+        got = [*got[0], *got[1], got[2]]
+        leaves = [t.clone().requires_grad_() for t in (*planes, *lines, xyz)]
+        pk = triplane.pack_grids(leaves[:3], leaves[3:6])
+        pk = ([triplane.round_bf16(t) for t in pk[0]],
+              [triplane.round_bf16(t) for t in pk[1]], pk[2])
+        feats = triplane.triplane_features_packed(*pk, leaves[6])
+        want = torch.autograd.grad(feats, leaves, cot, retain_graph=True)
+        rel = err = 0.0
+        for gname, a, b in zip(("plane0", "plane1", "plane2", "line0",
+                                "line1", "line2", "xyz"), got, want):
+            e = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            check(e <= GRAD_REL_TOL * scale,
+                  f"K5 bf16 {case} d_{gname}: max |kernel - plain| {e:.3e} "
+                  f"exceeds {GRAD_REL_TOL} x {scale:.3e}")
+            err, rel = max(err, e), max(rel, e / scale)
+        check(not torch.equal(got[0], got[0].to(torch.bfloat16).float()),
+              "K5 bf16: the plane gradient is bf16-rounded")
+        del got, want
+        ms, plain_ms = ab_ms(
+            lambda: torch.autograd.grad(feats, leaves, cot,
+                                        retain_graph=True), kernel)
+        parts = _timed(timing.device_ms_by_name, kernel,
+                       (bench.K5_KERNEL, bench.K6_KERNEL))
+        rec = dict(tables=bench.K5_CASES[case][0], points=n,
+                   stream=bench.K5_CASES[case][2], max_rel_err=rel, ms=ms,
+                   plain_ms=plain_ms, device_ms=parts[bench.K5_KERNEL],
+                   k6_device_ms=parts[bench.K6_KERNEL],
+                   glue_device_ms=parts["other"], bytes=nbytes,
+                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+        if k5 is None:
+            k5 = _kernel_entry(
+                "fused_sample.cu", "evdeblurnerf_tpu/ops/fused_sample.py:112",
+                err, ms, plain_ms, nbytes, 40 * n_ch * n, cases={},
+                max_rel_err=rel, device_ms=rec["device_ms"],
+                tables="bf16 rows; f32 cotangent and gradients")
+        k5["cases"][case] = rec
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        k5["max_rel_err"] = max(k5["max_rel_err"], rel)
+        del feats, leaves, pk, packed, planes, lines, xyz, cot
+        torch.cuda.empty_cache()
+    records["triplane_features_bwd_bf16"] = k5
+    for name, r in records.items():
+        for case, c in r["cases"].items():
+            print(f"[14 bf16] {name} {case}: " + _case_line(c))
+    return records
+
+
+def _shifted(t):
+    """A contiguous copy of ``t`` one element off its vector boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _set_tables(model, bf16):
+    """The voxel fields' tables to bf16 or f32, repacked from the same
+    grids: one state, two table types."""
+    for field in (model.mlp_coarse, model.mlp_fine):
+        field.table_bf16 = bf16
+        field.pack_tables()
+
+
+def _bf16_paper_step(dev, card, timing):
+    """Phase 14 (b): the paper step with bf16 tables and with f32 ones on
+    one state, in turns (f32, bf16, bf16, f32); returns the bf16 blocks'
+    launches."""
+    import torch
+
+    from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.train import step as tstep
+
+    args = train_args(**BF16_FLAGS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model, state = _train_state(args, dev, H, W, FOCAL, NUM_IMAGES, gen)
+    step = tstep.build_train_step(args)
+    sw_of = tstep.schedule_weights_fn(args)
+    batch, ev_batch = make_train_batch(dev, args.N_rand, args.events_N_rand)
+    n_rays = args.N_rand * args.kernel_ptnum + 2 * args.events_N_rand
+
+    def one():
+        return step(state, batch, ev_batch, sw_of(state.step), False, True)
+
+    losses = {True: [], False: []}
+    for bf16 in (False, True):
+        _set_tables(model, bf16)
+        losses[bf16] += [float(one()["loss"]) for _ in range(TRAIN_WARMUP)]
+    ms = {True: [], False: []}
+    peak = {}
+    launches = None
+    for bf16 in (False, True, True, False):
+        _set_tables(model, bf16)
+        torch.cuda.synchronize()
+        first = bf16 not in peak
+        if first:
+            torch.cuda.reset_peak_memory_stats()
+        if bf16 and launches is None:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        timed = [one()["loss"] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        ms[bf16].append(1e3 * (time.perf_counter() - t0) / TRAIN_STEPS)
+        if first:
+            peak[bf16] = torch.cuda.max_memory_allocated() / 2**30
+        if bf16 and launches is None:
+            launches = dict(kernels.LAUNCHES)
+        losses[bf16] += [float(v) for v in timed]
+    names = ("permute_lanes_3d", "permute_lanes", "cdf_take",
+             "triplane_fwd", "triplane_bwd")
+    device_ms = {}
+    for bf16 in (False, True):
+        _set_tables(model, bf16)
+        device_ms[bf16] = _timed(timing.device_ms_by_name, one, names, 2, 0)
+    for bf16, vals in losses.items():
+        check(all(math.isfinite(v) for v in vals),
+              f"non-finite loss (bf16 {bf16}): {vals}")
+    for name in kernels.BF16_TRAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "bf16 training step")
+    check(launches["triplane_features"] == 0
+          and launches["triplane_features_bwd"] == 0,
+          f"the bf16 step launched the f32 forms: {launches}")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    total = {b: sum(d.values()) for b, d in device_ms.items()}
+    print(f"[14 bf16] paper step with bf16 tables on {card}, "
+          f"{TRAIN_STEPS} steps a block, in turns with the f32 tables on "
+          f"one state: bf16 {[round(v, 1) for v in ms[True]]} ms/step, f32 "
+          f"{[round(v, 1) for v in ms[False]]} ms/step; bf16 "
+          f"{n_rays * 1e3 / min(ms[True]):.1f} train rays/s; peak bf16 "
+          f"{peak[True]:.2f} GiB, f32 {peak[False]:.2f} GiB; device ms/step "
+          f"bf16 {total[True]:.2f} {_round(device_ms[True])}, f32 "
+          f"{total[False]:.2f} {_round(device_ms[False])}; bf16 launches "
+          f"per step {per_step}; losses bf16 "
+          f"{[round(v, 6) for v in losses[True]]}, f32 "
+          f"{[round(v, 6) for v in losses[False]]}")
+    del state, model
+    torch.cuda.empty_cache()
+    return launches, dict(ms_per_step=ms, peak_gib=peak,
+                          device_ms_per_step=total)
+
+
+def _bf16_serve(dev, card, sd):
+    """Phase 14 (d): one 480x640 pose through ``serving.build_renderer``
+    with the bf16 eval chain and with f32 tables, same weights (phase 4's):
+    eval rays/s and the largest pixel difference. Returns the bf16
+    render's launches."""
+    import torch
+
+    from evdeblurnerf_torch import kernels, serving
+
+    K = [[FOCAL, 0.0, W / 2], [0.0, FOCAL, H / 2], [0.0, 0.0, 1.0]]
+    pose = make_poses()[:1]
+    out, rgbs = {}, {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        args = argparse.Namespace(**dict(SERVE_FLAGS, triplane_bf16=bf16))
+        r = serving.build_renderer(args, sd, H, W, K, NEAR, FAR, AABB,
+                                   device=dev)
+        check(r.model.mlp_fine.eval_bf16(False) is bf16,
+              f"the {name} renderer's eval chain")
+        warm = torch.zeros(CHUNK, 3, 2, device=dev)
+        warm[:, 2, 1] = -1.0
+        r(warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rgb, depth = r.render_poses(pose)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = dict(eval_rays_per_s=H * W / secs,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches={k: v for k, v in kernels.LAUNCHES.items()
+                                   if v})
+        check(bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all()),
+              f"non-finite {name} render")
+        rgbs[name] = rgb
+        del r
+        torch.cuda.empty_cache()
+    check(out["bf16"]["launches"].get("triplane_features_bf16_compute", 0) > 0
+          and "triplane_features" not in out["bf16"]["launches"],
+          f"the bf16 render launched {out['bf16']['launches']}")
+    diff = (rgbs["bf16"] - rgbs["f32"]).abs()
+    out["pixel_max_diff"] = float(diff.max())
+    out["pixel_p99_diff"] = float(torch.quantile(
+        diff.reshape(-1)[::7].float(), 0.99))
+    print(f"[14 bf16] one {H}x{W} pose through the bf16 eval chain on "
+          f"{card}: {out['bf16']['eval_rays_per_s']:.1f} eval rays/s, peak "
+          f"{out['bf16']['peak_gib']:.2f} GiB, launches "
+          f"{out['bf16']['launches']}; f32 tables, same weights and call: "
+          f"{out['f32']['eval_rays_per_s']:.1f} eval rays/s, peak "
+          f"{out['f32']['peak_gib']:.2f} GiB; rgb |bf16 - f32| max "
+          f"{out['pixel_max_diff']:.3e}, p99 {out['pixel_p99_diff']:.3e}")
+    return out["bf16"]["launches"], out
+
+
+def phase_bf16(dev, card, sd_serve, sd, crf_sd):
+    """Phase 14 (module docstring): the kernels, the step, the step card
+    vs CPU (bf16 tables and the two culls, the card replaying the CPU's
+    selections) on phase 6's weights, and the served pose on phase 4's."""
+    import torch
+
+    timing = _load_tool("timing_torch")
+    bench = _load_tool("bench_kernel_variants_torch")
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    records = _bf16_kernels(dev, g, bench, timing)
+    step_launches, step = _bf16_paper_step(dev, card, timing)
+    ab = phase_train_card_vs_cpu(dev, sd, crf_sd, culls=CULL_FLAGS,
+                                 flags=BF16_FLAGS,
+                                 label="[14 bf16] bf16 tables,")
+    serve_launches, serve = _bf16_serve(dev, card, sd_serve)
+    for name, r in records.items():
+        r["launches"] = (serve_launches.get(name, 0)
+                         if name == "triplane_features_bf16_compute"
+                         else step_launches[name])
+        check(r["launches"] > 0, f"{name} never launched on its path")
+    return records, dict(step=step, card_vs_cpu=ab, serve=serve)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the exported serving artifact
+# ---------------------------------------------------------------------------
+
+EXPORT_DIR = os.path.join(REPO, "build", "chip_smoke")
+EXPORT_TOL = 1e-5       # artifact vs live, per ray; the share beyond it is
+                        # held to CPU_MAX_SHARE
+
+_LOAD_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from evdeblurnerf_torch import kernels, serving
+t0 = time.perf_counter()
+r = serving.load_renderer(sys.argv[2])
+load_s = time.perf_counter() - t0
+rays = torch.from_numpy(np.load(sys.argv[3])).to(r.device)
+kernels.reset_launches()
+t0 = time.perf_counter()
+rgb, depth, acc = r(rays)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+np.savez(sys.argv[4], rgb=rgb.cpu().numpy(), depth=depth.cpu().numpy(),
+         acc=acc.cpu().numpy())
+bad = sorted(m for m in sys.modules if m.startswith(
+    ("evdeblurnerf_torch.models", "jax", "evdeblurnerf_tpu")))
+print(json.dumps(dict(load_s=load_s, first_call_s=first_s, modules=bad,
+                      launches={k: v for k, v in kernels.LAUNCHES.items()
+                                if v})))
+"""
+
+
+def phase_export(dev, card, sd):
+    """Phase 15 (module docstring)."""
+    import numpy as np
+    import torch
+
+    from evdeblurnerf_torch import kernels, serving
+    from evdeblurnerf_torch.train.evaluate import pose_rays
+
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    path = os.path.join(EXPORT_DIR, "serve.evdnpt")
+    args = argparse.Namespace(**SERVE_FLAGS)
+    K = [[FOCAL, 0.0, W / 2], [0.0, FOCAL, H / 2], [0.0, 0.0, 1.0]]
+    live = serving.build_renderer(args, sd, H, W, K, NEAR, FAR, AABB,
+                                  device=dev)
+    t0 = time.perf_counter()
+    exported, meta = serving.export_renderer(
+        live.model, chunk=CHUNK, crf=live.crf,
+        meta={"H": H, "W": W, "K": K, "near": NEAR, "far": FAR,
+              "expname": "chip_smoke", "step": 0})
+    export_s = time.perf_counter() - t0
+    size = serving.save_renderer(path, exported, meta)
+    del exported
+    torch.cuda.empty_cache()
+    pose = make_poses()[:1]
+    rays = pose_rays(pose, H, W, K, dev)[:CHUNK].contiguous()
+    rays_path = os.path.join(EXPORT_DIR, "rays.npy")
+    out_path = os.path.join(EXPORT_DIR, "artifact_out.npz")
+    np.save(rays_path, rays.cpu().numpy())
+    child = subprocess.run(
+        [sys.executable, "-c", _LOAD_CHILD, REPO, path, rays_path, out_path],
+        capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0,
+          f"loading the artifact in a fresh process failed: "
+          f"{child.stderr[-3000:]}")
+    fresh = json.loads(child.stdout.strip().splitlines()[-1])
+    check(fresh["modules"] == [], f"the loader imported {fresh['modules']}")
+    check(all(fresh["launches"].get(k, 0) > 0 for k in SERVE_KERNELS),
+          f"the artifact launched {fresh['launches']}")
+    got = np.load(out_path)
+    want = live(rays)
+    diff = np.zeros(CHUNK)
+    for name, w in zip(("rgb", "depth", "acc"), want):
+        d = np.abs(got[name] - w.cpu().numpy()).reshape(CHUNK, -1)
+        diff = np.maximum(diff, d.max(-1))
+    exact = bool((diff == 0).all())
+    beyond = float((diff > EXPORT_TOL).mean())
+    check(beyond <= CPU_MAX_SHARE,
+          f"{beyond:.4f} of the artifact's rays differ from the live "
+          f"renderer's by more than {EXPORT_TOL}")
+    # a whole pose through the artifact (in this process) and the live
+    # renderer, in turns
+    r = serving.load_renderer(path)
+    r(rays)
+    rates = {"artifact": [], "live": []}
+    kernels.reset_launches()
+    launches = None
+    for name in ("live", "artifact", "artifact", "live"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgbs, _ = (r.render_poses(pose) if name == "artifact"
+                   else live.render_poses(pose))
+        torch.cuda.synchronize()
+        rates[name].append(H * W / (time.perf_counter() - t0))
+        if name == "artifact" and launches is None:
+            launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        del rgbs
+    del r, live
+    torch.cuda.empty_cache()
+    bench = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "bench_serving_torch.py"),
+         "--artifact", path, "--calls", "20"], capture_output=True,
+        text=True, timeout=600)
+    check(bench.returncode == 0,
+          f"tools/bench_serving_torch.py failed: {bench.stderr[-3000:]}")
+    bench_line = json.loads(bench.stdout.strip().splitlines()[-1])
+    print(f"[15 export] the serve model at the paper width exported "
+          f"(chunk {CHUNK}, {meta['tables']} tables, CRF folded) in "
+          f"{export_s:.1f} s to {os.path.relpath(path, REPO)}, "
+          f"{size} bytes; a fresh process loaded it in "
+          f"{fresh['load_s']:.2f} s with no model module, first call "
+          f"{fresh['first_call_s']:.2f} s, launches {fresh['launches']}; "
+          f"against the live renderer on {CHUNK} rays: "
+          f"{'bitwise equal' if exact else 'max |diff| %.3e' % diff.max()}, "
+          f"share beyond {EXPORT_TOL}: {beyond:.4f}; one {H}x{W} pose on "
+          f"{card}: artifact {[round(v, 1) for v in rates['artifact']]} "
+          f"eval rays/s, live {[round(v, 1) for v in rates['live']]}")
+    print(f"[15 export] tools/bench_serving_torch.py: "
+          f"{json.dumps(bench_line)}")
+    return launches, dict(bytes=size, export_s=export_s, fresh=fresh,
+                          exact=exact, max_abs_diff=float(diff.max()),
+                          rates=rates, bench=bench_line)
+
+
 def main():
     try:
         import torch
@@ -2055,9 +2572,9 @@ def main():
         dev = torch.device("cuda", 0)
         phase_build()
         kernel_results = phase_kernels(dev)
-        renderer, sd, serve_launches, _ = phase_serving(dev, card)
-        phase_card_vs_cpu(dev, renderer, sd)
-        del renderer, sd
+        renderer, sd_serve, serve_launches, _ = phase_serving(dev, card)
+        phase_card_vs_cpu(dev, renderer, sd_serve)
+        del renderer
         torch.cuda.empty_cache()
         train_launches, sd, crf_sd, step_only = phase_train(dev, card)
         phase_train_card_vs_cpu(dev, sd, crf_sd)
@@ -2067,7 +2584,10 @@ def main():
         phase_bench_torch(step_only)
         nerf_launches, _ = phase_nerf(dev, card)
         cull_launches, _ = phase_cull(dev, card, sd, crf_sd)
+        bf16_records, _ = phase_bf16(dev, card, sd_serve, sd, crf_sd)
         del sd, crf_sd
+        export_launches, _ = phase_export(dev, card, sd_serve)
+        del sd_serve
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                          "evdeblurnerf_tpu")]
@@ -2088,6 +2608,10 @@ def main():
         r["launches_cull"] = cull_launches[name]
         if name in SERVE_KERNELS:
             r["launches_serve"] = serve_launches[name]
+            r["launches_export"] = export_launches[name]
+    # the bf16 forms: launches of phase 14's bf16 step, or of its bf16
+    # served pose for the eval chain's form
+    kernel_results.update(bf16_records)
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in
                                   kernel_results.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,13 @@ What differs from the JAX package's table:
     default. The port keeps 0 because the JAX package's own 30k-iteration
     screens found the cull scene-sensitive (+0.41 dB on the sphere scene,
     -0.22 dB on the boxes scene, ``PERF_NOTES.md:73-103``), until a
-    matched screen on the card says otherwise.
+    matched screen on the card says otherwise. ``--triplane_bf16`` trains
+    and renders with bf16 tables, as the JAX package does by default; the
+    port keeps f32, since a default that changes what a run trains to
+    moves only after a matched held-out screen (ROADMAP conventions), and
+    one pair at 2500 iterations resolves no sign (PERF.md).
+    ``--triplane_line_matmul`` steers the TPU's MXU line lookup, which the
+    port does not carry: its line gradients are the exact f32 ones.
   * ``--device`` (``cuda`` by default): the entry points run on the card
     unless the caller asks for ``cpu``.
   * Flags that steer TPU mechanisms (``compilation_cache_dir``,
@@ -594,7 +600,7 @@ def check_supported(args: Args) -> None:
     something the port does not do yet, naming its ROADMAP queue-1 item.
     Flags that only steer TPU mechanisms (``compilation_cache_dir``,
     ``matmul_precision``, ``remat``, ``triplane_line_matmul``) are accepted
-    and ignored."""
+    and ignored; ``triplane_bf16`` is ported (bf16 tables)."""
     def asks(name, default=0):
         return getattr(args, name, default) or default
 
@@ -603,8 +609,6 @@ def check_supported(args: Args) -> None:
         todo.append(("--tp_model_parallel > 1", 22))
     if getattr(args, "multihost", False):
         todo.append(("--multihost", 22))
-    if getattr(args, "triplane_bf16", False):
-        todo.append(("--triplane_bf16 (bf16 tables)", 24))
     if todo:
         raise NotImplementedError(
             "not ported to evdeblurnerf_torch yet: " + "; ".join(

@@ -35,6 +35,32 @@ inline unsigned int blocks_for(int64_t work, int64_t per_block) {
 
 constexpr int kMaxDevices = 64;
 
+// bf16 as the kernels store it: the upper 16 bits of the f32 value.
+using bf16_bits = uint16_t;
+
+// f32 -> the nearest bf16 value (ties to even), as an f32: one hardware
+// conversion (cvt.rn.bf16.f32, sm_80 and later) in inline PTX, so the
+// sources need no cuda_bf16.h and build the same under any conversion
+// macros. For every value but NaN this is bit for bit PyTorch's float ->
+// BFloat16 conversion (c10::detail::round_to_nearest_even); a NaN stays a
+// NaN, with other payload bits.
+__device__ __forceinline__ float round_bf16(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return __uint_as_float(static_cast<unsigned>(h) << 16);
+}
+
+// A bf16 value (its 16 bits) widened to f32: exact.
+__device__ __forceinline__ float bf16_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// An f32 value that is a bf16 value already (round_bf16's result) -> its
+// 16 bits.
+__device__ __forceinline__ unsigned bf16_bits_of(float x) {
+  return __float_as_uint(x) >> 16;
+}
+
 // Multiprocessors of a device and the dynamic shared memory a block can
 // opt in to (bytes), asked once per device.
 inline cudaError_t device_limits(int device, int* sms, int* smem_optin) {

@@ -111,21 +111,93 @@
 // so the plane gradients differ from run to run in the last bits, as the
 // reference's grid_sample backward does (ops/triplane.py:6-9).
 //
+// bf16 tables (--triplane_bf16; ops/fused_sample.py:271-279 and
+// ops/triplane.py:238-266 of the JAX package). Every kernel above is a
+// template on the element type of the packed tables, f32 or bf16 (kept as
+// its 16 bits, evdn::bf16_bits), in three forms:
+//   * K4 over bf16 rows: the rows are widened to f32 on load (exact: a
+//     shift of the bits), and the math and the output stay f32, so the
+//     kernel equals its plain version (the f32 sampler over the widened
+//     rows) bitwise. The design is the f32 one: C / 4 lanes a point, four
+//     channels a lane; the slots move as 8-byte loads (a 16-byte load
+//     would hold 8 channels and halve the lanes a point: a later
+//     measurement's question), so the vector form asks for every C a
+//     multiple of 4 and the tables on an 8-byte boundary, else the scalar
+//     form. At the paper width the packed tables are half the f32 ones
+//     (~0.25 GB), the bound's output and xyz do not shrink;
+//   * K4 under the bf16 eval chain (table_bf16 and not is_train in the JAX
+//     package's voxnerf.py:107-112): rows, the slot weights, every product
+//     and sum, plane x line and the output [N, C0 + C1 + C2] in bf16. Each
+//     operation is done in f32 and rounded to bf16 (evdn::round_bf16, one
+//     hardware conversion, ties to even as PyTorch's) where the plain
+//     version's bf16 tensor operation rounds, in its order, so this form
+//     too equals its plain version bitwise; XLA may round such chains at
+//     other places (on the CPU test inputs it does not), so the JAX
+//     function may differ from both by a few bf16 ulps. Bound: bytes, as
+//     the f32 form, plus ~12 roundings a channel to issue;
+//   * K5 over bf16 rows: pf and lf are recomputed from the same bf16 pack
+//     the forward read, widened as above; the cotangent, every gradient,
+//     the float4 atomics into the raw f32 grids and the line tiles in
+//     shared memory are the f32 kernel's. The gradient of the grids is the
+//     exact f32 scatter of the JAX package's _take_rows_bf16 custom VJP
+//     (ops/triplane.py:120-143 there); d(xyz) and the plane x line terms
+//     use the bf16-rounded row values, its residuals.
+//
 // Coordinates must be finite: NaN coordinates give NaN features (the base
 // index is clipped with fmaxf/fminf, which drop the NaN, so no row outside
 // the table is ever read).
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
+using evdn::bf16_bits;
+using evdn::round_bf16;
+
 struct Projection {
-  const float* plane;  // [H * W, 4C] neighbour-packed
-  const float* line;   // [D, 2C] neighbour-packed
+  const void* plane;   // [H * W, 4C] neighbour-packed, f32 or bf16
+  const void* line;    // [D, 2C] neighbour-packed, f32 or bf16
   int H, W, D, C;
   int m0, m1, v;       // xyz columns: plane x, plane y, line
 };
+
+// One table element widened to f32, and four (on a 16-byte boundary for
+// f32, an 8-byte one for bf16).
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const bf16_bits* p) {
+  return evdn::bf16_to_float(__ldg(p));
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const bf16_bits* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <typename T>
+__device__ __forceinline__ const T* plane_of(const Projection& p) {
+  return static_cast<const T*>(p.plane);
+}
+template <typename T>
+__device__ __forceinline__ const T* line_of(const Projection& p) {
+  return static_cast<const T*>(p.line);
+}
+
+// K4's output element: f32, or bf16 under the bf16 eval chain
+template <bool kBf16Math>
+using OutT = std::conditional_t<kBf16Math, bf16_bits, float>;
+
+// A slot weight as the math takes it: rounded to bf16 under the chain
+template <bool kBf16Math>
+__device__ __forceinline__ float math_weight(float w) {
+  return kBf16Math ? round_bf16(w) : w;
+}
 
 struct Tables {
   Projection p[3];
@@ -155,9 +227,50 @@ __device__ __forceinline__ float texel_coord(float x, int size) {
                    static_cast<float>(size - 1));
 }
 
+// One component of the output, rounded as the plain version rounds: f32
+// sums with no FMA contraction, or under the bf16 chain every product and
+// sum rounded to bf16 (the weights arrive rounded).
+template <bool kBf16Math>
+__device__ __forceinline__ float feature(float s00, float s01, float s10,
+                                         float s11, float l0, float l1,
+                                         float w00, float w01, float w10,
+                                         float w11, float q0, float q1) {
+  if (kBf16Math) {
+    float pf = round_bf16(__fmul_rn(s00, w00));
+    pf = round_bf16(__fadd_rn(pf, round_bf16(__fmul_rn(s01, w01))));
+    pf = round_bf16(__fadd_rn(pf, round_bf16(__fmul_rn(s10, w10))));
+    pf = round_bf16(__fadd_rn(pf, round_bf16(__fmul_rn(s11, w11))));
+    const float lf = round_bf16(__fadd_rn(round_bf16(__fmul_rn(l0, q0)),
+                                          round_bf16(__fmul_rn(l1, q1))));
+    return round_bf16(__fmul_rn(pf, lf));
+  }
+  float pf = __fmul_rn(s00, w00);
+  pf = __fadd_rn(pf, __fmul_rn(s01, w01));
+  pf = __fadd_rn(pf, __fmul_rn(s10, w10));
+  pf = __fadd_rn(pf, __fmul_rn(s11, w11));
+  const float lf = __fadd_rn(__fmul_rn(l0, q0), __fmul_rn(l1, q1));
+  return __fmul_rn(pf, lf);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16_bits* p, float v) {
+  *p = static_cast<bf16_bits>(evdn::bf16_bits_of(v));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void store4(bf16_bits* p, float4 v) {
+  uint2 u;
+  u.x = evdn::bf16_bits_of(v.x) | (evdn::bf16_bits_of(v.y) << 16);
+  u.y = evdn::bf16_bits_of(v.z) | (evdn::bf16_bits_of(v.w) << 16);
+  __stcs(reinterpret_cast<uint2*>(p), u);
+}
+
+template <typename T, bool kBf16Math>
 __global__ void triplane_fwd_scalar_kernel(const float* __restrict__ xyz,
                                     const __grid_constant__ Tables t,
-                                    float* __restrict__ out, int64_t n) {
+                                    OutT<kBf16Math>* __restrict__ out,
+                                    int64_t n) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (g >= n * t.ctot) return;
@@ -180,37 +293,23 @@ __global__ void triplane_fwd_scalar_kernel(const float* __restrict__ xyz,
   const int bl = slot_weights(texel_coord(q[p.v], p.D), p.D, &q0, &q1);
 
   const int C = p.C;
-  const float* pr = p.plane + (static_cast<int64_t>(by) * p.W + bx) * 4 * C;
-  const float* lr = p.line + static_cast<int64_t>(bl) * 2 * C;
-  float pf = __fmul_rn(__ldg(pr + c), __fmul_rn(sy0, sx0));
-  pf = __fadd_rn(pf, __fmul_rn(__ldg(pr + C + c), __fmul_rn(sy0, sx1)));
-  pf = __fadd_rn(pf, __fmul_rn(__ldg(pr + 2 * C + c), __fmul_rn(sy1, sx0)));
-  pf = __fadd_rn(pf, __fmul_rn(__ldg(pr + 3 * C + c), __fmul_rn(sy1, sx1)));
-  const float lf = __fadd_rn(__fmul_rn(__ldg(lr + c), q0),
-                             __fmul_rn(__ldg(lr + C + c), q1));
-  out[g] = __fmul_rn(pf, lf);
+  const T* pr =
+      plane_of<T>(p) + (static_cast<int64_t>(by) * p.W + bx) * 4 * C;
+  const T* lr = line_of<T>(p) + static_cast<int64_t>(bl) * 2 * C;
+  const float v = feature<kBf16Math>(
+      ld1(pr + c), ld1(pr + C + c), ld1(pr + 2 * C + c), ld1(pr + 3 * C + c),
+      ld1(lr + c), ld1(lr + C + c),
+      math_weight<kBf16Math>(__fmul_rn(sy0, sx0)),
+      math_weight<kBf16Math>(__fmul_rn(sy0, sx1)),
+      math_weight<kBf16Math>(__fmul_rn(sy1, sx0)),
+      math_weight<kBf16Math>(__fmul_rn(sy1, sx1)),
+      math_weight<kBf16Math>(q0), math_weight<kBf16Math>(q1));
+  store1(out + g, v);
 }
 
 // ---- K4 on four channels a lane ----
 
 constexpr int kFwdPoints = 64;  // points a block takes
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// One component of the output, rounded as the plain version rounds.
-__device__ __forceinline__ float feature(float s00, float s01, float s10,
-                                         float s11, float l0, float l1,
-                                         float w00, float w01, float w10,
-                                         float w11, float q0, float q1) {
-  float pf = __fmul_rn(s00, w00);
-  pf = __fadd_rn(pf, __fmul_rn(s01, w01));
-  pf = __fadd_rn(pf, __fmul_rn(s10, w10));
-  pf = __fadd_rn(pf, __fmul_rn(s11, w11));
-  const float lf = __fadd_rn(__fmul_rn(l0, q0), __fmul_rn(l1, q1));
-  return __fmul_rn(pf, lf);
-}
 
 // Lanes a point: the power of two that holds C / 4, at most a warp.
 __device__ __forceinline__ int group_shift(int q4) {
@@ -219,14 +318,15 @@ __device__ __forceinline__ int group_shift(int q4) {
   return shift;
 }
 
-// Every C a multiple of 4, every table and the output on a 16-byte
-// boundary. Thread tid < 3 * 64 prepares point tid % 64 on projection
-// tid / 64; then thread tid works on point tid / G of the block's 64, G the
-// lanes a point of the projection at hand.
+// Every C a multiple of 4, every table and the output on a boundary of
+// four elements (16 bytes f32, 8 bytes bf16). Thread tid < 3 * 64 prepares
+// point tid % 64 on projection tid / 64; then thread tid works on point
+// tid / G of the block's 64, G the lanes a point of the projection at hand.
+template <typename T, bool kBf16Math>
 __global__ void __launch_bounds__(evdn::kThreads)
     triplane_fwd_kernel(const float* __restrict__ xyz,
                         const __grid_constant__ Tables t,
-                        float* __restrict__ out, int64_t n) {
+                        OutT<kBf16Math>* __restrict__ out, int64_t n) {
   __shared__ int s_texel[3 * kFwdPoints];  // by * W + bx
   __shared__ int s_row[3 * kFwdPoints];    // bl
   // the four corner weights and the two line weights
@@ -247,12 +347,12 @@ __global__ void __launch_bounds__(evdn::kThreads)
       s_row[tid] =
           slot_weights(texel_coord(__ldg(q + p.v), p.D), p.D, &q0, &q1);
       s_texel[tid] = by * p.W + bx;
-      s_w[0][tid] = __fmul_rn(sy0, sx0);
-      s_w[1][tid] = __fmul_rn(sy0, sx1);
-      s_w[2][tid] = __fmul_rn(sy1, sx0);
-      s_w[3][tid] = __fmul_rn(sy1, sx1);
-      s_w[4][tid] = q0;
-      s_w[5][tid] = q1;
+      s_w[0][tid] = math_weight<kBf16Math>(__fmul_rn(sy0, sx0));
+      s_w[1][tid] = math_weight<kBf16Math>(__fmul_rn(sy0, sx1));
+      s_w[2][tid] = math_weight<kBf16Math>(__fmul_rn(sy1, sx0));
+      s_w[3][tid] = math_weight<kBf16Math>(__fmul_rn(sy1, sx1));
+      s_w[4][tid] = math_weight<kBf16Math>(q0);
+      s_w[5][tid] = math_weight<kBf16Math>(q1);
     }
   }
   __syncthreads();
@@ -275,23 +375,24 @@ __global__ void __launch_bounds__(evdn::kThreads)
       const int k = i * kFwdPoints + pl;
       const float w00 = s_w[0][k], w01 = s_w[1][k], w10 = s_w[2][k];
       const float w11 = s_w[3][k], q0 = s_w[4][k], q1 = s_w[5][k];
-      const float* pr = p.plane + static_cast<int64_t>(s_texel[k]) * pstride;
-      const float* lr = p.line + static_cast<int64_t>(s_row[k]) * lstride;
-      float* o = out + pt * t.ctot + off;
+      const T* pr =
+          plane_of<T>(p) + static_cast<int64_t>(s_texel[k]) * pstride;
+      const T* lr = line_of<T>(p) + static_cast<int64_t>(s_row[k]) * lstride;
+      OutT<kBf16Math>* o = out + pt * t.ctot + off;
       for (int c = lane * 4; c < C; c += G * 4) {
         const float4 s00 = ld4(pr + c), s01 = ld4(pr + C + c);
         const float4 s10 = ld4(pr + o10 + c), s11 = ld4(pr + o10 + C + c);
         const float4 l0 = ld4(lr + c), l1 = ld4(lr + C + c);
         float4 r;
-        r.x = feature(s00.x, s01.x, s10.x, s11.x, l0.x, l1.x, w00, w01, w10,
-                      w11, q0, q1);
-        r.y = feature(s00.y, s01.y, s10.y, s11.y, l0.y, l1.y, w00, w01, w10,
-                      w11, q0, q1);
-        r.z = feature(s00.z, s01.z, s10.z, s11.z, l0.z, l1.z, w00, w01, w10,
-                      w11, q0, q1);
-        r.w = feature(s00.w, s01.w, s10.w, s11.w, l0.w, l1.w, w00, w01, w10,
-                      w11, q0, q1);
-        __stcs(reinterpret_cast<float4*>(o + c), r);
+        r.x = feature<kBf16Math>(s00.x, s01.x, s10.x, s11.x, l0.x, l1.x, w00,
+                                 w01, w10, w11, q0, q1);
+        r.y = feature<kBf16Math>(s00.y, s01.y, s10.y, s11.y, l0.y, l1.y, w00,
+                                 w01, w10, w11, q0, q1);
+        r.z = feature<kBf16Math>(s00.z, s01.z, s10.z, s11.z, l0.z, l1.z, w00,
+                                 w01, w10, w11, q0, q1);
+        r.w = feature<kBf16Math>(s00.w, s01.w, s10.w, s11.w, l0.w, l1.w, w00,
+                                 w01, w10, w11, q0, q1);
+        store4(o + c, r);
       }
     }
     off += C;
@@ -326,6 +427,7 @@ struct Grads {
   float* xyz;       // [N, 3]
 };
 
+template <typename T>
 __global__ void triplane_bwd_scalar_kernel(const float* __restrict__ xyz,
                                     const __grid_constant__ Tables t,
                                     const float* __restrict__ g,
@@ -352,17 +454,17 @@ __global__ void triplane_bwd_scalar_kernel(const float* __restrict__ xyz,
 
     const int C = p.C;
     const int64_t texel = static_cast<int64_t>(by) * p.W + bx;
-    const float* pr = p.plane + texel * 4 * C;
-    const float* lr = p.line + static_cast<int64_t>(bl) * 2 * C;
+    const T* pr = plane_of<T>(p) + texel * 4 * C;
+    const T* lr = line_of<T>(p) + static_cast<int64_t>(bl) * 2 * C;
     const float* gp = g + pt * t.ctot + off;
     float* dp = d.plane[i];
     float* dl = d.line[i] + pt * 2 * C;
     if (lane == 0) d.row[i][pt] = bl;
     float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f, b0 = 0.f, b1 = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float s00 = __ldg(pr + c), s01 = __ldg(pr + C + c);
-      const float s10 = __ldg(pr + 2 * C + c), s11 = __ldg(pr + 3 * C + c);
-      const float l0 = __ldg(lr + c), l1 = __ldg(lr + C + c);
+      const float s00 = ld1(pr + c), s01 = ld1(pr + C + c);
+      const float s10 = ld1(pr + 2 * C + c), s11 = ld1(pr + 3 * C + c);
+      const float l0 = ld1(lr + c), l1 = ld1(lr + C + c);
       const float pf = s00 * w00 + s01 * w01 + s10 * w10 + s11 * w11;
       const float lf = l0 * q0 + l1 * q1;
       const float gi = __ldg(gp + c);
@@ -487,6 +589,7 @@ __device__ __forceinline__ void add_dxyz(float* dxyz, const Projection& p,
 // cotangent gp[c..], adds the four corner terms into the plane gradient
 // dplane (texel-major [H * W, C]), adds this lane's part to the channel
 // sums and returns the two line-row cotangents d_lf * q0, d_lf * q1.
+template <typename T>
 __device__ __forceinline__ void lane_terms(const Projection& p,
                                            const PointGeom& m,
                                            const float* gp, float* dplane,
@@ -496,8 +599,8 @@ __device__ __forceinline__ void lane_terms(const Projection& p,
   const float w00 = __fmul_rn(m.sy0, m.sx0), w01 = __fmul_rn(m.sy0, m.sx1);
   const float w10 = __fmul_rn(m.sy1, m.sx0), w11 = __fmul_rn(m.sy1, m.sx1);
   const int64_t texel = static_cast<int64_t>(m.by) * p.W + m.bx;
-  const float* pr = p.plane + texel * 4 * C + c;
-  const float* lr = p.line + static_cast<int64_t>(m.bl) * 2 * C + c;
+  const T* pr = plane_of<T>(p) + texel * 4 * C + c;
+  const T* lr = line_of<T>(p) + static_cast<int64_t>(m.bl) * 2 * C + c;
   float* dp = dplane + texel * C + c;
   const float4 s00 = ld4(pr), s01 = ld4(pr + C);
   const float4 s10 = ld4(pr + 2 * C), s11 = ld4(pr + 3 * C);
@@ -527,6 +630,7 @@ __device__ __forceinline__ void lane_terms(const Projection& p,
 // on a 16-byte boundary. Thread tid works on point tid / G of the block's
 // 64; a warp's lanes run the same trips, so the sub-group shuffles are
 // full-warp calls.
+template <typename T>
 __global__ void __launch_bounds__(evdn::kThreads)
     triplane_bwd_kernel(const float* __restrict__ xyz,
                         const __grid_constant__ Tables t,
@@ -556,8 +660,8 @@ __global__ void __launch_bounds__(evdn::kThreads)
         if (lane == 0) d.row[i][pt] = m.bl;
         for (int c = lane * 4; c < C; c += G * 4) {
           float4 t0, t1;
-          lane_terms(p, m, g + pt * t.ctot + off, d.plane[i], c, s, &t0,
-                     &t1);
+          lane_terms<T>(p, m, g + pt * t.ctot + off, d.plane[i], c, s, &t0,
+                        &t1);
           __stcs(reinterpret_cast<float4*>(dl + c), t0);
           __stcs(reinterpret_cast<float4*>(dl + C + c), t1);
         }
@@ -605,6 +709,7 @@ __host__ __device__ inline int64_t fused_floats(const Tables& t) {
 
 // Every C a multiple of 4 and at most 128 (one float4 a lane), every
 // pointer on a 16-byte boundary. d.line[i] is the raw [C, D] gradient.
+template <typename T>
 __global__ void __launch_bounds__(kFusedThreads, 1)
     triplane_bwd_fused_kernel(const float* __restrict__ xyz,
                               const __grid_constant__ Tables t,
@@ -661,8 +766,8 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
           m = point_geom(p, xyz + pt * 3);
           if (active) {
             float4 t0, t1;
-            lane_terms(p, m, g + pt * t.ctot + off, d.plane[i], lane * 4, s,
-                       &t0, &t1);
+            lane_terms<T>(p, m, g + pt * t.ctot + off, d.plane[i], lane * 4,
+                          s, &t0, &t1);
             if (m.bl == cur) {
               acc0 = add4(acc0, t0);
               acc1 = add4(acc1, t1);
@@ -720,55 +825,106 @@ __global__ void __launch_bounds__(kFusedThreads, 1)
 namespace {
 
 // MAT_MODE ((0, 1), (0, 2), (1, 2)) and VEC_MODE (2, 1, 0)
-Tables make_tables(const float* plane0, const float* plane1,
-                   const float* plane2, const float* line0, const float* line1,
-                   const float* line2, int H0, int W0, int D0, int C0, int H1,
-                   int W1, int D1, int C1, int H2, int W2, int D2, int C2) {
+Tables make_tables(const void* plane0, const void* plane1, const void* plane2,
+                   const void* line0, const void* line1, const void* line2,
+                   int H0, int W0, int D0, int C0, int H1, int W1, int D1,
+                   int C1, int H2, int W2, int D2, int C2) {
   return Tables{{{plane0, line0, H0, W0, D0, C0, 0, 1, 2},
                  {plane1, line1, H1, W1, D1, C1, 0, 2, 1},
                  {plane2, line2, H2, W2, D2, C2, 1, 2, 0}},
                 C0 + C1 + C2, 0};
 }
 
+template <typename T, bool kBf16Math>
+void launch_fwd(const float* xyz, const Tables& t, void* out, int64_t n,
+                int mode, cudaStream_t stream) {
+  auto* o = static_cast<OutT<kBf16Math>*>(out);
+  if (mode) {
+    triplane_fwd_kernel<T, kBf16Math>
+        <<<evdn::blocks_for(n, kFwdPoints), evdn::kThreads, 0, stream>>>(
+            xyz, t, o, n);
+  } else {
+    triplane_fwd_scalar_kernel<T, kBf16Math>
+        <<<evdn::blocks_for(n * t.ctot, evdn::kThreads), evdn::kThreads, 0,
+           stream>>>(xyz, t, o, n);
+  }
+}
+
+template <typename T>
+int launch_bwd(const float* xyz, const Tables& t, const float* g,
+               const Grads& d, int64_t n, int mode, int device,
+               cudaStream_t stream) {
+  if (mode == 2) {
+    if (t.p[0].C > 128 || t.p[1].C > 128 || t.p[2].C > 128)
+      return static_cast<int>(cudaErrorInvalidValue);
+    static bool raised[evdn::kMaxDevices];
+    int sms = 0, optin = 0;
+    cudaError_t err = evdn::device_limits(device, &sms, &optin);
+    const int64_t bytes = fused_floats(t) * sizeof(float);
+    if (err == cudaSuccess && bytes > optin) err = cudaErrorInvalidValue;
+    if (err == cudaSuccess)
+      err = evdn::raise_shared_memory(triplane_bwd_fused_kernel<T>, optin,
+                                      device, raised);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = static_cast<int>(
+        std::min<int64_t>(sms, evdn::blocks_for(n, kFusedPoints)));
+    triplane_bwd_fused_kernel<T><<<blocks, kFusedThreads, bytes, stream>>>(
+        xyz, t, g, d, n);
+  } else if (mode == 1) {
+    triplane_bwd_kernel<T><<<evdn::blocks_for(n, kBwdPoints), evdn::kThreads,
+                             0, stream>>>(xyz, t, g, d, n);
+  } else {
+    constexpr int kPointsPerBlock = evdn::kThreads / 32;
+    triplane_bwd_scalar_kernel<T><<<evdn::blocks_for(n, kPointsPerBlock),
+                                    evdn::kThreads, 0, stream>>>(xyz, t, g,
+                                                                 d, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// mode 0: the scalar kernel, 1: the float4 kernel, both over the
-// neighbour-packed tables; 2: the float4 kernel over texel-major unpacked
-// tables (plane* [H * W, C], line* [D, C]).
+// mode 0: the scalar kernel, 1: the vector kernel, both over the
+// neighbour-packed tables; 2: the vector kernel over texel-major unpacked
+// tables (plane* [H * W, C], line* [D, C]; f32 only). tables 0: f32 tables
+// and output; 1: bf16 tables, f32 math and output; 2: bf16 tables, math
+// and output (the bf16 eval chain).
 EVDN_API int evdn_triplane_features(
-    const float* xyz, const float* plane0, const float* plane1,
-    const float* plane2, const float* line0, const float* line1,
-    const float* line2, float* out, int64_t n, int H0, int W0, int D0, int C0,
-    int H1, int W1, int D1, int C1, int H2, int W2, int D2, int C2, int mode,
-    int device, cudaStream_t stream) {
+    const float* xyz, const void* plane0, const void* plane1,
+    const void* plane2, const void* line0, const void* line1,
+    const void* line2, void* out, int64_t n, int H0, int W0, int D0, int C0,
+    int H1, int W1, int D1, int C1, int H2, int W2, int D2, int C2,
+    int tables, int mode, int device, cudaStream_t stream) {
   EVDN_SET_DEVICE(device);
   Tables t = make_tables(plane0, plane1, plane2, line0, line1, line2, H0, W0,
                          D0, C0, H1, W1, D1, C1, H2, W2, D2, C2);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (mode && (C0 % 4 || C1 % 4 || C2 % 4))
+  if ((mode && (C0 % 4 || C1 % 4 || C2 % 4)) || tables < 0 || tables > 2 ||
+      (mode == 2 && tables))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode) {
-    t.unpacked = mode == 2;
-    triplane_fwd_kernel<<<evdn::blocks_for(n, kFwdPoints), evdn::kThreads, 0,
-                          stream>>>(xyz, t, out, n);
-  } else {
-    triplane_fwd_scalar_kernel<<<evdn::blocks_for(n * t.ctot, evdn::kThreads),
-                                 evdn::kThreads, 0, stream>>>(xyz, t, out, n);
-  }
+  t.unpacked = mode == 2;
+  if (tables == 0)
+    launch_fwd<float, false>(xyz, t, out, n, mode, stream);
+  else if (tables == 1)
+    launch_fwd<bf16_bits, false>(xyz, t, out, n, mode, stream);
+  else
+    launch_fwd<bf16_bits, true>(xyz, t, out, n, mode, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 // mode 0: the scalar kernel, 1: the float4 kernel (both write the [N, 2C]
 // scratch dline* and the rows drow* for K6), 2: the fused kernel (dline*
-// are the raw [C, D] line gradients, zeroed; drow* are not used).
+// are the raw [C, D] line gradients, zeroed; drow* are not used). tables
+// 0: f32 packed tables, 1: bf16 ones (the gradients stay f32).
 EVDN_API int evdn_triplane_features_bwd(
-    const float* xyz, const float* plane0, const float* plane1,
-    const float* plane2, const float* line0, const float* line1,
-    const float* line2, const float* g, float* dplane0, float* dplane1,
+    const float* xyz, const void* plane0, const void* plane1,
+    const void* plane2, const void* line0, const void* line1,
+    const void* line2, const float* g, float* dplane0, float* dplane1,
     float* dplane2, float* dline0, float* dline1, float* dline2,
     int32_t* drow0, int32_t* drow1, int32_t* drow2, float* dxyz, int64_t n,
     int H0, int W0, int D0, int C0, int H1, int W1, int D1, int C1, int H2,
-    int W2, int D2, int C2, int mode, int device, cudaStream_t stream) {
+    int W2, int D2, int C2, int tables, int mode, int device,
+    cudaStream_t stream) {
   EVDN_SET_DEVICE(device);
   const Tables t = make_tables(plane0, plane1, plane2, line0, line1, line2,
                                H0, W0, D0, C0, H1, W1, D1, C1, H2, W2, D2,
@@ -778,32 +934,8 @@ EVDN_API int evdn_triplane_features_bwd(
                 {drow0, drow1, drow2},
                 dxyz};
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (mode && (C0 % 4 || C1 % 4 || C2 % 4))
+  if ((mode && (C0 % 4 || C1 % 4 || C2 % 4)) || tables < 0 || tables > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 2) {
-    if (C0 > 128 || C1 > 128 || C2 > 128)
-      return static_cast<int>(cudaErrorInvalidValue);
-    static bool raised[evdn::kMaxDevices];
-    int sms = 0, optin = 0;
-    cudaError_t err = evdn::device_limits(device, &sms, &optin);
-    const int64_t bytes = fused_floats(t) * sizeof(float);
-    if (err == cudaSuccess && bytes > optin) err = cudaErrorInvalidValue;
-    if (err == cudaSuccess)
-      err = evdn::raise_shared_memory(triplane_bwd_fused_kernel, optin,
-                                      device, raised);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int blocks = static_cast<int>(
-        std::min<int64_t>(sms, evdn::blocks_for(n, kFusedPoints)));
-    triplane_bwd_fused_kernel<<<blocks, kFusedThreads, bytes, stream>>>(
-        xyz, t, g, d, n);
-  } else if (mode == 1) {
-    triplane_bwd_kernel<<<evdn::blocks_for(n, kBwdPoints), evdn::kThreads, 0,
-                          stream>>>(xyz, t, g, d, n);
-  } else {
-    constexpr int kPointsPerBlock = evdn::kThreads / 32;
-    triplane_bwd_scalar_kernel<<<evdn::blocks_for(n, kPointsPerBlock),
-                                 evdn::kThreads, 0, stream>>>(xyz, t, g, d,
-                                                              n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return tables ? launch_bwd<bf16_bits>(xyz, t, g, d, n, mode, device, stream)
+                : launch_bwd<float>(xyz, t, g, d, n, mode, device, stream);
 }

@@ -53,6 +53,11 @@
 //   Exactness: f32 sums in another order than the one-hot matmul's, and an
 //   order that varies from run to run with the atomics. Indices outside
 //   [0, D) add nothing, as a one-hot row of zeros would.
+//   Precision (line_grad only): "highest" sums g as it is; "default", the
+//   TPU kernel's other option (line_matmul.py:19-23,49-53 there, its MXU
+//   pass at default precision), rounds every element of g to bf16 (ties to
+//   even, evdn::round_bf16) as it is loaded and sums the rounded values in
+//   f32. No model path takes "default", as in the JAX package.
 #include <algorithm>
 
 #include "common.cuh"
@@ -74,6 +79,7 @@ struct LineTable {
   int Wt, ncs;         // columns of a tile, splits along W
   int workers;         // blocks that share the points of one split
   int block0;          // the table's first block
+  int round_g;         // g rounded to bf16 on load (precision "default")
 };
 
 struct LineTables {
@@ -122,6 +128,10 @@ __device__ __forceinline__ void accumulate(const LineTable& t, float* tile,
         v[u][k] = (row && lane + 32 * k < wt)
                       ? __ldcs(gcol + (p + u) * t.W + 32 * k)
                       : 0.f;
+      if (t.round_g) {
+#pragma unroll
+        for (int k = 0; k < KPT; ++k) v[u][k] = evdn::round_bf16(v[u][k]);
+      }
     }
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
@@ -280,10 +290,12 @@ int launch(LineTables a, int device, cudaStream_t stream) {
 
 }  // namespace
 
+// round_g 0: precision "highest"; 1: "default" (g rounded to bf16)
 EVDN_API int evdn_line_grad(const int32_t* idx, const float* g, float* out,
-                            int64_t n, int D, int W, int device,
+                            int64_t n, int D, int W, int round_g, int device,
                             cudaStream_t stream) {
   LineTables a{};
+  a.t[0].round_g = round_g != 0;
   a.t[0].idx = idx;
   a.t[0].g = g;
   a.t[0].out = out;

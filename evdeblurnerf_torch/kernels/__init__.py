@@ -6,10 +6,12 @@ PyTorch twin beside it:
 * ``ops/lane_shuffle.py``: K1 ``permute_lanes`` and its backward launch,
   K2 ``permute_lanes_3d`` forward and backward, K3 ``cdf_take``;
 * ``ops/fused_sample.py``: K4 ``triplane_features`` (two kernels, chosen
-  by shape and alignment) and K5 ``triplane_features_bwd`` (three kernels,
-  chosen by shape);
-* ``ops/line_matmul.py``: K6 ``line_grad`` and ``line_grad_tables`` (three
-  tables in one launch, counted as one ``line_grad``);
+  by shape and alignment, each over f32 tables, bf16 tables, or bf16
+  tables under the bf16 eval chain) and K5 ``triplane_features_bwd``
+  (three kernels, chosen by shape, each over f32 or bf16 tables);
+* ``ops/line_matmul.py``: K6 ``line_grad`` (precision "highest" or
+  "default") and ``line_grad_tables`` (three tables in one launch, counted
+  as one ``line_grad``);
 * ``ops/tiled_gather.py``: K7 ``tiled_plane_gather``.
 
 The wrapper asks :func:`wants_kernel`:
@@ -23,6 +25,14 @@ The wrapper asks :func:`wants_kernel`:
 :data:`LAUNCHES` counts the launches of each kernel, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` zeroes the
 counts with :func:`reset_launches` before it renders and reads them after).
+The render path's kernels (K1's forward, K3, K4 in its three table
+types) are also custom ops of the dispatcher, ``evdn::<name>``
+(:func:`custom_op`): each launches its kernel or runs its plain twin as
+:func:`wants_kernel` says, and a fake implementation gives shapes, so
+``torch.export`` traces a render into a program that calls them
+(``serving.export_renderer``); loading such a program needs the op
+modules imported, nothing else of the package.
+
 Counterpart of the dispatch in ``evdeblurnerf_tpu/ops/lane_shuffle.py``
 (``use_pallas``/``_take_impl``), without the TPU's shard_map wrapper and
 environment switches.
@@ -39,12 +49,17 @@ from . import build
 # launched with the inverse permutation)
 KERNELS = ("permute_lanes", "permute_lanes_bwd", "permute_lanes_3d",
            "permute_lanes_3d_bwd", "cdf_take", "triplane_features",
-           "triplane_features_bwd", "line_grad", "tiled_plane_gather")
-# what one training step launches. K6 runs only behind a K5 whose line
-# tables pass a block's shared memory (the paper's fit, so K5 sums them
-# itself); K7 lies on no model path and runs from its own entry point,
-# tools/bench_tiled_gather_torch.py
-TRAIN_KERNELS = KERNELS[:-2]
+           "triplane_features_bwd", "line_grad", "tiled_plane_gather",
+           "triplane_features_bf16", "triplane_features_bf16_compute",
+           "triplane_features_bwd_bf16")
+# what one training step launches over f32 tables. K6 runs only behind a
+# K5 whose line tables pass a block's shared memory (the paper's fit, so K5
+# sums them itself); K7 lies on no model path and runs from its own entry
+# point, tools/bench_tiled_gather_torch.py
+TRAIN_KERNELS = KERNELS[:7]
+# what one training step launches over bf16 tables (--triplane_bf16)
+BF16_TRAIN_KERNELS = KERNELS[:5] + ("triplane_features_bf16",
+                                    "triplane_features_bwd_bf16")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -87,6 +102,18 @@ def launch(name: str, device: torch.device, *args,
             f"{name}: CUDA error {rc} "
             f"({build.load().evdn_error_string(rc).decode()})")
     LAUNCHES[counter or name] += 1
+
+
+def custom_op(name: str, impl, fake):
+    """Register the dispatcher op ``evdn::<name>``. ``impl``, whose type
+    annotations give the schema, serves every device and chooses as every
+    wrapper does: the kernel where :func:`wants_kernel` says so, else the
+    plain version; ``fake`` gives the outputs' shapes under tracing.
+    Returns the op; its inputs are not mutated and its outputs are new
+    tensors."""
+    op = torch.library.custom_op(f"evdn::{name}", impl, mutates_args=())
+    op.register_fake(fake)
+    return op
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

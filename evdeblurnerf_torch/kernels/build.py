@@ -45,17 +45,20 @@ SIGNATURES = {
     # cdf, bins, below, above, 4 outputs, rows, M, Mb, N, device, stream
     "evdn_cdf_take": (_P,) * 8 + (_L, _I, _I, _I, _I, _P),
     # xyz, 3 packed planes, 3 packed lines, out, n,
-    # (H, W, D, C) x 3 projections, mode (0 scalar, 1 float4, 2 float4 over
-    # unpacked tables), device, stream
-    "evdn_triplane_features": (_P,) * 8 + (_L,) + (_I,) * 12 + (_I, _I, _P),
+    # (H, W, D, C) x 3 projections, tables (0 f32, 1 bf16 rows, 2 bf16 rows
+    # and math), mode (0 scalar, 1 vector, 2 vector over unpacked tables),
+    # device, stream
+    "evdn_triplane_features": (_P,) * 8 + (_L,) + (_I,) * 12
+    + (_I, _I, _I, _P),
     # xyz, 3 packed planes, 3 packed lines, g, 3 plane grads, 3 line-row
     # grads (fused: the 3 raw line grads), 3 line-row indices, xyz grad, n,
-    # (H, W, D, C) x 3 projections, mode (0 scalar, 1 float4, 2 fused),
-    # device, stream
+    # (H, W, D, C) x 3 projections, tables (0 f32, 1 bf16), mode (0 scalar,
+    # 1 float4, 2 fused), device, stream
     "evdn_triplane_features_bwd": (_P,) * 18 + (_L,) + (_I,) * 12
-    + (_I, _I, _P),
-    # idx, g, out, n, D, W, device, stream
-    "evdn_line_grad": (_P, _P, _P, _L, _I, _I, _I, _P),
+    + (_I, _I, _I, _P),
+    # idx, g, out, n, D, W, round g to bf16 (precision "default"), device,
+    # stream
+    "evdn_line_grad": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # 3 idx, 3 g, 3 out, n, (D, W) x 3 tables, device, stream
     "evdn_line_grad_tables": (_P,) * 9 + (_L,) + (_I,) * 6 + (_I, _P),
     # plane, fu, fv, oy, ox, out, groups, H, W, C, TH, TW, device, stream

@@ -4,8 +4,8 @@ Counterpart of ``evdeblurnerf_tpu/models/embedding.py``:
 :func:`positional_encoding` in its exact form (ref:
 networks/embedding.py:65-115): bands 2^0..2^(m-1), per-band [sin, cos],
 input first; :class:`ViewEmbedding`, the per-image latent table (ref:
-networks/embedding.py:6-32). The JAX package's double-angle encoding serves
-only its bf16 eval chain and is not ported. :class:`ViewEmbeddingMLP` is
+networks/embedding.py:6-32); the double-angle form of the encoding serves
+the bf16 eval chain (``--triplane_bf16``). :class:`ViewEmbeddingMLP` is
 the table followed by a skip-connected MLP (``kernel_img_embed_type
 param_mlp``, ref: networks/embedding.py:35-62).
 """
@@ -24,14 +24,41 @@ def positional_encoding_dim(multires: int, input_dim: int = 3) -> int:
     return input_dim * (1 + 2 * multires)
 
 
-def positional_encoding(x: torch.Tensor, multires: int) -> torch.Tensor:
-    """[..., D] -> [..., D*(1+2*multires)] with per-band [sin, cos] order."""
+def positional_encoding(x: torch.Tensor, multires: int,
+                        double_angle: bool = False) -> torch.Tensor:
+    """[..., D] -> [..., D*(1+2*multires)] with per-band [sin, cos] order.
+
+    ``double_angle``: sin and cos of the base angle, then the recurrence
+    ``sin 2a = 2 sin a cos a``, ``cos 2a = 1 - 2 sin^2 a`` in f32, in the
+    JAX package's order of operations
+    (``evdeblurnerf_tpu/models/embedding.py:48-57``). Its phase error grows
+    about twofold a band (~6e-5 after 10), below bf16's resolution: the
+    bf16 eval chain's encoding, not the exact one.
+    """
     if multires <= 0:
         return x
     D = x.shape[-1]
-    freqs = 2.0 ** torch.arange(multires, dtype=x.dtype, device=x.device)
-    scaled = x[..., None, :] * freqs[:, None]                    # [..., m, D]
-    sc = torch.stack([torch.sin(scaled), torch.cos(scaled)], -2)  # [.,m,2,D]
+    if double_angle:
+        s, c = torch.sin(x), torch.cos(x)
+        sins, coss = [s], [c]
+        for _ in range(multires - 1):
+            s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+            sins.append(s)
+            coss.append(c)
+        # band-major stacks copy whole blocks; one strided copy then puts
+        # the bands in the per-point order. Stacking the [..., D] bands
+        # along -2 moves D floats at a time: ~21 ms of an eval chunk's
+        # device time on an H100 (tools/profile_serve_torch.py, PERF.md)
+        bands = torch.stack([torch.stack(sins), torch.stack(coss)], 1)
+        out = x.new_empty(*x.shape[:-1], D * (1 + 2 * multires))
+        out[..., :D] = x
+        out[..., D:].unflatten(-1, (multires, 2, D)).copy_(
+            bands.movedim((0, 1), (-3, -2)))
+        return out
+    else:
+        freqs = 2.0 ** torch.arange(multires, dtype=x.dtype, device=x.device)
+        scaled = x[..., None, :] * freqs[:, None]                # [..., m, D]
+        sc = torch.stack([torch.sin(scaled), torch.cos(scaled)], -2)
     return torch.cat([x, sc.reshape(*x.shape[:-1], 2 * multires * D)], -1)
 
 

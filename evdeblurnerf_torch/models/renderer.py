@@ -63,9 +63,9 @@ from .voxnerf import VoxelNeRF
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render/model configuration; fields and defaults mirror the
-    JAX package's ``RenderConfig``. The TPU-only fields (bf16 tables, line
-    matmul) are absent: :func:`config_from_args` rejects bf16 tables, which
-    the port does not do yet. ``rgb_activate``,
+    JAX package's ``RenderConfig``. ``triplane_bf16``: bf16 tables
+    (``models/voxnerf.py``). The TPU-only line matmul is absent: the port's
+    line gradients are the exact f32 ones. ``rgb_activate``,
     ``sigma_activate``, ``white_bkgd`` and the ``net*`` widths steer the
     NeRF field only, as in the JAX package."""
 
@@ -112,6 +112,7 @@ class RenderConfig:
     fine_app_n_comp: Tuple[int, ...] = (64, 16, 16)
     fine_n_voxels: int = 134217984
     fine_app_actfn: str = "none"
+    triplane_bf16: bool = False
     # the two culls (module docstring); 0 is reference-exact sampling
     fine_cull_capacity: float = 0.0
     fine_cull_eps: float = 1e-3
@@ -134,16 +135,7 @@ class RenderConfig:
 
 
 def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
-    """Build a RenderConfig from parsed flags and dataset-derived values.
-
-    Raises NotImplementedError for bf16 tables, which the port does not
-    render yet, naming the ROADMAP item that adds them, instead of
-    rendering something else.
-    """
-    if getattr(args, "triplane_bf16", False):
-        raise NotImplementedError(
-            "triplane_bf16: the port samples f32 tables; bf16 tables are "
-            "ROADMAP.md queue 1 item 24; pass --no_triplane_bf16")
+    """Build a RenderConfig from parsed flags and dataset-derived values."""
     return RenderConfig(
         mode=args.mode, N_samples=args.N_samples,
         N_importance=args.N_importance, perturb=args.perturb,
@@ -177,6 +169,7 @@ def config_from_args(args, aabb, H, W, focal, near, far) -> RenderConfig:
         fine_app_n_comp=tuple(args.fine_app_n_comp or (64, 16, 16)),
         fine_n_voxels=args.fine_n_voxels,
         fine_app_actfn=args.fine_app_actfn,
+        triplane_bf16=bool(getattr(args, "triplane_bf16", False)),
         fine_cull_capacity=args.fine_cull_capacity or 0.0,
         fine_cull_eps=args.fine_cull_eps,
         coarse_cull_capacity=args.coarse_cull_capacity or 0.0,
@@ -218,10 +211,14 @@ def _capacity_select_sorted(keep_s: torch.Tensor,
 
 class Renderer(nn.Module):
     """Coarse and fine fields (``mlp_coarse``, ``mlp_fine``; the latter None
-    without an importance pass) and the render of a ray batch."""
+    without an importance pass) and the render of a ray batch.
+    ``eval_f32_interp`` turns the bf16 eval chain of bf16 tables off
+    (``models/voxnerf.py``), where the JAX package reads the environment
+    variable ``EVDN_EVAL_F32_INTERP``."""
 
     def __init__(self, cfg: RenderConfig,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 eval_f32_interp: bool = False):
         super().__init__()
         self.cfg = cfg
         if cfg.mode == "nerf":
@@ -243,8 +240,9 @@ class Renderer(nn.Module):
                       multires_views=cfg.multires_views,
                       add_bias_color=cfg.rgb_add_bias,
                       render_rmnearplane=cfg.render_rmnearplane,
-                      sigma_activate="relu", generator=generator,
-                      device=device)
+                      sigma_activate="relu", table_bf16=cfg.triplane_bf16,
+                      eval_f32_interp=eval_f32_interp,
+                      generator=generator, device=device)
         self.mlp_coarse = VoxelNeRF(
             n_voxels=cfg.coarse_n_voxels, app_n_comp=cfg.coarse_app_n_comp,
             app_dim=cfg.coarse_app_dim, num_layers=cfg.coarse_num_layers,
@@ -289,6 +287,15 @@ class Renderer(nn.Module):
             for field in (self.mlp_coarse, self.mlp_fine):
                 if field is not None:
                     field.refresh_tables()
+
+    def freeze_tables(self) -> None:
+        """Freeze the voxel fields' packed tables and drop their raw grids
+        (``VoxelNeRF.freeze_tables``): a renderer that only renders, as an
+        exported artifact holds it."""
+        if self.cfg.mode == "c2f":
+            for field in (self.mlp_coarse, self.mlp_fine):
+                if field is not None:
+                    field.freeze_tables()
 
     def _sample_z(self, R: int, device, perturb: float,
                   generator) -> torch.Tensor:
@@ -473,7 +480,7 @@ class Renderer(nn.Module):
             return self._render_nerf(rays_o, rays_d, viewdirs, z_vals, pts,
                                      noise_c, is_train, perturb, noise_std,
                                      generator, want_features)
-        ft_coarse = self.mlp_coarse.sample(pts)
+        ft_coarse = self.mlp_coarse.sample(pts, is_train)
         rgb0, depth0, acc0, weights, feature = self.mlp_coarse(
             pts, viewdirs, ft_coarse, z_vals, rays_d, noise=noise_c,
             is_train=is_train,
@@ -494,16 +501,16 @@ class Renderer(nn.Module):
                                  self._cull_select(z_cat, z_vals, weights))
             pts_cat = (rays_o[..., None, :]
                        + rays_d[..., None, :] * z_cat[..., :, None])
-            ft_cat = self.mlp_coarse.sample(pts_cat)
+            ft_cat = self.mlp_coarse.sample(pts_cat, is_train)
         else:
             pts_new = (rays_o[..., None, :]
                        + rays_d[..., None, :] * z_samples[..., :, None])
             pts_cat = (rays_o[..., None, :]
                        + rays_d[..., None, :] * z_cat[..., :, None])
-            ft_cat = torch.cat([ft_coarse, self.mlp_coarse.sample(pts_new)],
-                               1)
+            ft_cat = torch.cat(
+                [ft_coarse, self.mlp_coarse.sample(pts_new, is_train)], 1)
         z_all, perm, inv_perm = lane_shuffle.sort_with_perm(z_cat)
-        ft = torch.cat([ft_cat, self.mlp_fine.sample(pts_cat)], -1)
+        ft = torch.cat([ft_cat, self.mlp_fine.sample(pts_cat, is_train)], -1)
         noise_f = self._noise((R, z_cat.shape[-1] - 1), noise_std, generator)
         rgb, depth, acc, weights, feature = self.mlp_fine(
             pts_cat, viewdirs, ft, z_all, rays_d, noise=noise_f,
@@ -579,8 +586,8 @@ class Renderer(nn.Module):
                 is_train, composite_feature=self.cfg.composite_feature_coarse)
             return rgb, feature
         rgb, _, _, _, feature = self.mlp_coarse(
-            pts, viewdirs, self.mlp_coarse.sample(pts), z_vals, rays_d,
-            noise=noise, is_train=is_train)
+            pts, viewdirs, self.mlp_coarse.sample(pts, is_train), z_vals,
+            rays_d, noise=noise, is_train=is_train)
         return rgb, feature
 
     def coarse_sigma_grid(self) -> torch.Tensor:

@@ -137,11 +137,12 @@ class EvDeblurNeRF(Renderer):
     def __init__(self, cfg: RenderConfig, kcfg: Optional[KernelConfig] = None,
                  num_images: int = 0,
                  generator: torch.Generator | None = None, device=None,
-                 K=None):
+                 K=None, eval_f32_interp: bool = False):
         """``K``: the [3, 3] intrinsics the DSK/PBE kernels re-derive their
         rays through; the centred pinhole of ``cfg`` (H, W, focal) when
-        None."""
-        super().__init__(cfg, generator=generator, device=device)
+        None. ``eval_f32_interp``: :class:`Renderer`'s."""
+        super().__init__(cfg, generator=generator, device=device,
+                         eval_f32_interp=eval_f32_interp)
         self.kcfg = kcfg
         self.kernelsnet = None
         self.awpnet = None

@@ -18,6 +18,19 @@ repacks whenever a grid has changed since (an optimizer step, a loaded
 state dict, any in-place edit), so it never reads tables older than the
 grids. The gradient of :meth:`sample` reaches the raw grids through kernel
 K5 (``ops/fused_sample.py::sample_grids``).
+
+bf16 tables (``table_bf16``, the JAX package's ``--triplane_bf16``): the
+grids are cast to bf16 before packing (packing only copies, so the bits
+are those of a cast after it), and one bf16 pack, half the f32 one, serves
+both uses. Training reads it through K4's bf16-row form, the gradient
+stays the exact f32 one (K5's bf16 form). Renders that do not train
+(``is_train`` False: held-out, served, the occupancy refresh's
+:meth:`density`) take the bf16 eval chain of
+``evdeblurnerf_tpu/models/voxnerf.py:107-112``: the interpolation in bf16
+(K4's bf16-compute form), its features widened into ``basis_mat``, and the
+double-angle positional encoding; ``eval_f32_interp`` turns the chain off
+(the JAX package's ``EVDN_EVAL_F32_INTERP``), leaving bf16 rows with f32
+math.
 """
 
 from __future__ import annotations
@@ -59,8 +72,12 @@ class VoxelNeRF(nn.Module):
                  multires_views: int = 4, composite_feature: bool = True,
                  rgb_activate: str = "relu", sigma_activate: str = "relu",
                  app_actfn: str = "none", render_rmnearplane: int = 0,
+                 table_bf16: bool = False, eval_f32_interp: bool = False,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
+        self.table_bf16 = table_bf16
+        self.eval_f32_interp = eval_f32_interp
+        self.tables_frozen = False
         self.register_buffer(
             "aabb", torch.tensor(aabb, dtype=torch.float32, device=device),
             persistent=False)
@@ -124,8 +141,13 @@ class VoxelNeRF(nn.Module):
     def pack_tables(self) -> None:
         """Neighbour-pack the grids into the tables :meth:`sample` reads and
         record the grids' versions. At the paper width this is one pass
-        over ~0.5 GB (the fine 64-component plane packs to ~375 MB)."""
-        planes, lines, sizes = triplane.pack_grids(*self.grids())
+        over ~0.5 GB (the fine 64-component plane packs to ~375 MB), half
+        that with bf16 tables, whose grids are cast before packing."""
+        planes, lines = self.grids()
+        if self.table_bf16:
+            planes = [p.to(torch.bfloat16) for p in planes]
+            lines = [l.to(torch.bfloat16) for l in lines]
+        planes, lines, sizes = triplane.pack_grids(planes, lines)
         for i in range(3):
             self.register_buffer(f"packed_plane_{i}", planes[i],
                                  persistent=False)
@@ -135,26 +157,54 @@ class VoxelNeRF(nn.Module):
         self._packed_versions = self._grid_versions()
 
     def refresh_tables(self) -> None:
-        """Repack if any grid changed since the last packing."""
+        """Repack if any grid changed since the last packing (nothing to do
+        once the tables are frozen)."""
+        if self.tables_frozen:
+            return
         if self._grid_versions() != self._packed_versions:
             self.pack_tables()
+
+    def freeze_tables(self) -> None:
+        """Pack for the last time and drop the raw grids: the field then
+        renders from its packed tables alone, with no check of the grids'
+        versions, and cannot train. What an exported artifact holds
+        (``serving.export_renderer``)."""
+        self.refresh_tables()
+        self.app_plane = nn.ParameterList()
+        self.app_line = nn.ParameterList()
+        self.tables_frozen = True
 
     def normalize_coords(self, pts: torch.Tensor) -> torch.Tensor:
         """World points -> [-1, 1] grid coords (ref: voxnerf.py:203-206)."""
         inv_size = 2.0 / (self.aabb[1] - self.aabb[0])
         return (pts - self.aabb[0]) * inv_size - 1.0
 
-    def sample(self, pts: torch.Tensor) -> torch.Tensor:
+    def eval_bf16(self, is_train: bool) -> bool:
+        """Whether a render takes the bf16 eval chain: bf16 tables, not
+        training, and the chain not turned off (the one gate of the
+        interpolation and the double-angle encoding)."""
+        return (self.table_bf16 and not is_train
+                and not self.eval_f32_interp)
+
+    def sample(self, pts: torch.Tensor, is_train: bool = True
+               ) -> torch.Tensor:
         """World pts [..., 3] -> appearance features [..., app_dim]
         (ref: voxnerf.py:132-151, 203-208): kernel K4 over the packed
-        tables, differentiable to the grids and the points (K5)."""
+        tables, differentiable to the grids and the points (K5); under
+        the bf16 eval chain (:meth:`eval_bf16`) K4's bf16-compute form,
+        whose bf16 features are widened into ``basis_mat``."""
         self.refresh_tables()
         shape = pts.shape[:-1]
         xyz = self.normalize_coords(pts.reshape(-1, 3)).contiguous()
         packed = ([getattr(self, f"packed_plane_{i}") for i in range(3)],
                   [getattr(self, f"packed_line_{i}") for i in range(3)],
                   self.table_sizes)
-        feats = fused_sample.sample_grids(*self.grids(), packed, xyz)
+        compute = self.eval_bf16(is_train)
+        if compute or self.tables_frozen:
+            feats = fused_sample.triplane_features(
+                *packed, xyz, compute_bf16=compute).float()
+        else:
+            feats = fused_sample.sample_grids(*self.grids(), packed, xyz)
         feats = self.basis_mat(feats)
         return ACTIVATIONS[self.app_actfn](feats).reshape(*shape,
                                                           self.app_dim)
@@ -164,8 +214,9 @@ class VoxelNeRF(nn.Module):
         head of :meth:`forward` without noise, compositing or colour (ref:
         voxnerf.py:210-259; ``evdeblurnerf_tpu/models/voxnerf.py::
         density``), read by the occupancy refresh."""
-        fts = self.sample(pts).reshape(-1, self.app_dim)
-        pe = positional_encoding(pts.reshape(-1, 3), self.multires)
+        fts = self.sample(pts, is_train=False).reshape(-1, self.app_dim)
+        pe = positional_encoding(pts.reshape(-1, 3), self.multires,
+                                 double_angle=self.eval_bf16(False))
         h = self._mlp(self.sigma_net, torch.cat([fts, pe], -1))
         return h[..., 0].reshape(pts.shape[:-1])
 
@@ -201,7 +252,10 @@ class VoxelNeRF(nn.Module):
         None.
         """
         R, S = pts.shape[0], pts.shape[1]
-        pe = positional_encoding(pts.reshape(R * S, 3), self.multires)
+        # the bf16 eval chain's encoding (the gate of sample())
+        da = self.eval_bf16(is_train)
+        pe = positional_encoding(pts.reshape(R * S, 3), self.multires,
+                                 double_angle=da)
         h = self._mlp(self.sigma_net,
                       torch.cat([fts.reshape(R * S, -1), pe], -1))
         feature = h[..., 1:]
@@ -226,13 +280,15 @@ class VoxelNeRF(nn.Module):
             feat_act = ACTIVATIONS[self.rgb_activate](
                 feature.reshape(R, S, -1))
             feat_ray = torch.sum(weights_cat[..., None] * feat_act, -2)
-            dirs_pe = positional_encoding(viewdirs, self.multires_views)
+            dirs_pe = positional_encoding(viewdirs, self.multires_views,
+                                          double_angle=da)
             color = torch.sigmoid(self._mlp(
                 self.color_net, torch.cat([feat_ray, dirs_pe], -1)))
             out_feature = feat_ray
         else:
             dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(R * S, 3)
-            dirs_pe = positional_encoding(dirs, self.multires_views)
+            dirs_pe = positional_encoding(dirs, self.multires_views,
+                                          double_angle=da)
             color_s = torch.sigmoid(self._mlp(
                 self.color_net, torch.cat([feature, dirs_pe], -1)))
             color_s = ACTIVATIONS[self.rgb_activate](color_s.reshape(R, S, 3))

@@ -20,6 +20,18 @@ tables off a 16-byte boundary, one thread an output element; plain twin
 where the line tables fit a block's shared memory and else hands them to
 one launch of K6; plain twin: autograd through ``pack_grids`` and the
 packed sampler).
+
+bf16 tables (``--triplane_bf16``): the packed tables may be bf16, cast
+from the grids before packing. K4 then widens the rows and interpolates in
+f32, or, under the bf16 eval chain (``compute_bf16``), runs every
+operation in bf16 and writes bf16 features; K5 reads the same bf16 pack
+and adds exact f32 gradients into the raw grids. Each form has its own
+launch counter (:data:`K4_COUNTERS`, ``triplane_features_bwd_bf16``).
+
+K4 is the custom op ``evdn::triplane_features`` (``kernels.custom_op``):
+it launches the kernel on CUDA tensors and runs the plain twin on CPU
+tensors, and its fake implementation gives ``torch.export`` the output's
+shape, so an exported render holds the op (``serving.export_renderer``).
 """
 
 from __future__ import annotations
@@ -30,24 +42,41 @@ import torch
 
 from .. import kernels
 from .line_matmul import line_grad_tables
-from .triplane import VEC_MODE, pack_grids, triplane_features_packed
+from .triplane import (VEC_MODE, pack_grids, round_bf16,
+                       triplane_features_packed)
+
+
+# the element types of the packed tables K4 and K5 read
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def table_dtype(packed_planes, packed_lines) -> torch.dtype:
+    """The element type all six packed tables share, f32 or bf16; raises
+    on anything else or on a mix."""
+    dtypes = {t.dtype for t in (*packed_planes, *packed_lines)}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in TABLE_DTYPES:
+        raise TypeError("the packed tables must all be float32 or all "
+                        f"bfloat16, got {sorted(map(str, dtypes))}")
+    return next(iter(dtypes))
 
 
 def _check_tables(name, packed_planes, packed_lines, sizes, xyz,
                   slots=(4, 2)):
     """Raise unless the tables and points are what K4/K5 read; returns the
     (H, W, D, C) x 3 sizes the kernels take. ``slots``: neighbours a plane
-    row and a line row hold, (4, 2) packed, (1, 1) unpacked."""
+    row and a line row hold, (4, 2) packed, (1, 1) unpacked. The tables
+    are f32 or bf16 (:func:`table_dtype`)."""
     kernels.check_tensor(f"{name} xyz", xyz, torch.float32, 2)
     if xyz.shape[1] != 3:
         raise ValueError(f"{name}: xyz must be [N, 3], got "
                          f"{tuple(xyz.shape)}")
+    dtype = table_dtype(packed_planes, packed_lines)
     dims = []
     for i in range(3):
         H, W, D = sizes[i]
         plane, line = packed_planes[i], packed_lines[i]
-        kernels.check_tensor(f"{name} plane {i}", plane, torch.float32, 2)
-        kernels.check_tensor(f"{name} line {i}", line, torch.float32, 2)
+        kernels.check_tensor(f"{name} plane {i}", plane, dtype, 2)
+        kernels.check_tensor(f"{name} line {i}", line, dtype, 2)
         C = line.shape[1] // slots[1]
         if (min(H, W, D) < 2 or plane.shape != (H * W, slots[0] * C)
                 or line.shape != (D, slots[1] * C)):
@@ -62,60 +91,120 @@ def _check_tables(name, packed_planes, packed_lines, sizes, xyz,
 
 # the forms of kernel K4 (csrc/fused_sample.cu)
 K4_SCALAR, K4_FLOAT4, K4_UNPACKED = 0, 1, 2
+# the table types K4 reads: f32; bf16 rows, f32 math and output; bf16 rows,
+# math and output (the bf16 eval chain)
+K4_F32, K4_BF16, K4_BF16_COMPUTE = 0, 1, 2
+# each K4 table type's launch counter
+K4_COUNTERS = {K4_F32: "triplane_features",
+               K4_BF16: "triplane_features_bf16",
+               K4_BF16_COMPUTE: "triplane_features_bf16_compute"}
+
+
+def _vector_aligned(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the boundary of four of its elements, what
+    the vector forms load and store at once: 16 bytes for f32, 8 for
+    bf16."""
+    return t.data_ptr() % (4 * t.element_size()) == 0
 
 
 def _k4_mode(Cs, wide) -> int:
     """Which K4 kernel these shapes take: ``K4_FLOAT4`` (four channels a
-    lane, 16-byte loads and stores) when every component count is a
-    multiple of 4 and every tensor of ``wide`` (the tables, the output)
-    lies on a 16-byte boundary, else ``K4_SCALAR``."""
-    if any(C % 4 for C in Cs) or any(t.data_ptr() % 16 for t in wide):
+    lane, 16-byte loads and stores of f32, 8-byte ones of bf16) when every
+    component count is a multiple of 4 and every tensor of ``wide`` (the
+    tables, the output) lies on a boundary of four elements, else
+    ``K4_SCALAR``."""
+    if any(C % 4 for C in Cs) or not all(map(_vector_aligned, wide)):
         return K4_SCALAR
     return K4_FLOAT4
 
 
-def _launch_k4(name, planes, lines, sizes, xyz, slots=(4, 2)):
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _launch_k4(name, planes, lines, sizes, xyz, slots=(4, 2),
+               compute_bf16=False):
     tables = (*planes, *lines)
-    if torch.is_grad_enabled() and (xyz.requires_grad or any(
-            t.requires_grad for t in tables)):
+    if _needs_grad(xyz, *tables):
         raise NotImplementedError(
             f"{name}: K4 is the forward; differentiate through "
             "sample_grids, whose backward is K5")
     dims = _check_tables(name, planes, lines, sizes, xyz, slots)
+    bf16 = planes[0].dtype == torch.bfloat16
+    if compute_bf16 and not bf16:
+        raise TypeError(f"{name}: the bf16 chain reads bf16 tables")
+    ttype = (K4_BF16_COMPUTE if compute_bf16 else K4_BF16) if bf16 \
+        else K4_F32
     Cs = dims[3::4]
-    out = torch.empty((xyz.shape[0], sum(Cs)), dtype=torch.float32,
+    out = torch.empty((xyz.shape[0], sum(Cs)),
+                      dtype=torch.bfloat16 if compute_bf16 else torch.float32,
                       device=xyz.device)
     mode = _k4_mode(Cs, (*tables, out))
     if slots != (4, 2):
-        if mode != K4_FLOAT4:
+        if mode != K4_FLOAT4 or bf16:
             raise ValueError(
                 f"{name}: the unpacked tables are read by K4's float4 "
-                "kernel only: every component count a multiple of 4, every "
-                "table on a 16-byte boundary")
+                "kernel only: f32 tables, every component count a multiple "
+                "of 4, every table on a 16-byte boundary")
         mode = K4_UNPACKED
     kernels.launch("triplane_features", xyz.device, xyz.data_ptr(),
                    *(t.data_ptr() for t in tables), out.data_ptr(),
-                   xyz.shape[0], *dims, mode)
+                   xyz.shape[0], *dims, ttype, mode,
+                   counter=K4_COUNTERS[ttype])
     return out
+
+
+def _unflatten(sizes):
+    return [tuple(sizes[3 * i:3 * i + 3]) for i in range(3)]
+
+
+def _k4_impl(xyz: torch.Tensor, planes: list[torch.Tensor],
+             lines: list[torch.Tensor], sizes: list[int],
+             compute_bf16: bool) -> torch.Tensor:
+    sizes = _unflatten(sizes)
+    if not kernels.wants_kernel(xyz, *planes, *lines):
+        return triplane_features_packed(planes, lines, sizes, xyz,
+                                        compute_bf16)
+    return _launch_k4("triplane_features", planes, lines, sizes, xyz,
+                      compute_bf16=compute_bf16)
+
+
+def _k4_fake(xyz, planes, lines, sizes, compute_bf16):
+    return xyz.new_empty(
+        (xyz.shape[0], sum(t.shape[1] // 2 for t in lines)),
+        dtype=torch.bfloat16 if compute_bf16 else torch.float32)
+
+
+_K4_OP = kernels.custom_op("triplane_features", _k4_impl, _k4_fake)
 
 
 def triplane_features(packed_planes: Sequence[torch.Tensor],
                       packed_lines: Sequence[torch.Tensor],
                       sizes: Sequence[Tuple[int, int, int]],
-                      xyz: torch.Tensor) -> torch.Tensor:
-    """Factored features [N, sum(C_i)] f32 at normalised points xyz [N, 3].
+                      xyz: torch.Tensor,
+                      compute_bf16: bool = False) -> torch.Tensor:
+    """Factored features [N, sum(C_i)] at normalised points xyz [N, 3].
 
     ``packed_planes[i]`` [H_i*W_i, 4C_i] and ``packed_lines[i]``
     [D_i, 2C_i] come from ``ops/triplane.py::pack_grids``, with
-    ``sizes[i] = (H_i, W_i, D_i)``. Kernel K4 on CUDA tensors, in the form
-    :func:`_k4_mode` picks, :func:`..ops.triplane.triplane_features_packed`
-    on CPU tensors.
+    ``sizes[i] = (H_i, W_i, D_i)``, all f32 or all bf16. The features are
+    f32, or bf16 under the bf16 eval chain (``compute_bf16``, bf16 tables
+    only). Kernel K4 on CUDA tensors, in the form :func:`_k4_mode` picks,
+    :func:`..ops.triplane.triplane_features_packed` on CPU tensors, both
+    through the custom op ``evdn::triplane_features``. On CPU tensors that
+    need a gradient the plain twin runs under autograd (K4 itself is
+    forward-only: :func:`sample_grids` differentiates).
     """
-    if not kernels.wants_kernel(xyz, *packed_planes, *packed_lines):
+    tables = (*packed_planes, *packed_lines)
+    if _needs_grad(xyz, *tables):
+        if kernels.wants_kernel(xyz, *tables):
+            raise NotImplementedError(
+                "triplane_features: K4 is the forward; differentiate "
+                "through sample_grids, whose backward is K5")
         return triplane_features_packed(packed_planes, packed_lines, sizes,
-                                        xyz)
-    return _launch_k4("triplane_features", packed_planes, packed_lines,
-                      sizes, xyz)
+                                        xyz, compute_bf16)
+    return _K4_OP(xyz, list(packed_planes), list(packed_lines),
+                  [int(v) for hwd in sizes for v in hwd], bool(compute_bf16))
 
 
 def unpack_grids(planes, lines):
@@ -171,11 +260,12 @@ K5_FUSED_POINTS, K5_TILE_PAD = 512, 4
 def _k5_mode(Cs, Ds, wide, device) -> int:
     """Which K5 kernel these shapes take. ``K5_SCALAR`` unless every
     component count is a multiple of 4 and every tensor of ``wide`` lies
-    on a 16-byte boundary; then ``K5_FUSED`` when no count passes 128 and
+    on a boundary of four of its elements (16 bytes f32, 8 bytes bf16);
+    then ``K5_FUSED`` when no count passes 128 and
     the kernel's shared memory (d(xyz) of a pass plus the three line
     tiles, rows four floats apart) fits what a block of ``device`` can opt
     in to, else ``K5_FLOAT4``."""
-    if any(C % 4 for C in Cs) or any(t.data_ptr() % 16 for t in wide):
+    if any(C % 4 for C in Cs) or not all(map(_vector_aligned, wide)):
         return K5_SCALAR
     need = 4 * (3 * K5_FUSED_POINTS
                 + sum(D * (C + K5_TILE_PAD) for C, D in zip(Cs, Ds)))
@@ -185,13 +275,19 @@ def _k5_mode(Cs, Ds, wide, device) -> int:
     return K5_FLOAT4
 
 
-def triplane_features_bwd_plain(planes, lines, xyz, g):
+def triplane_features_bwd_plain(planes, lines, xyz, g, table_bf16=False):
     """Plain version of K5 (with K6): autograd through ``pack_grids`` and
     the packed sampler. planes 3 x [C, H, W], lines 3 x [C, D], xyz [N, 3],
-    g [N, sum(C)]; returns (d_planes, d_lines, d_xyz) in those layouts."""
+    g [N, sum(C)]; returns (d_planes, d_lines, d_xyz) in those layouts.
+    ``table_bf16``: the packed tables rounded to bf16 by
+    ``ops/triplane.py::round_bf16``, whose backward passes the gradient on
+    unrounded (the exact f32 scatter)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (*planes, *lines, xyz)]
         pp, pl, sizes = pack_grids(leaves[:3], leaves[3:6])
+        if table_bf16:
+            pp = [round_bf16(t) for t in pp]
+            pl = [round_bf16(t) for t in pl]
         out = triplane_features_packed(pp, pl, sizes, leaves[6])
         grads = torch.autograd.grad(out, leaves, g)
     return list(grads[:3]), list(grads[3:6]), grads[6]
@@ -202,7 +298,8 @@ def triplane_features_bwd(planes, lines, packed, xyz, g):
     g: (d_planes 3 x [C, H, W], d_lines 3 x [C, D], d_xyz [N, 3]).
 
     ``planes``/``lines`` are the raw grids and ``packed`` = (packed_planes,
-    packed_lines, sizes) the tables packed from them. On CUDA tensors
+    packed_lines, sizes) the tables packed from them, f32 or bf16 (the
+    gradients are f32 either way). On CUDA tensors
     kernel K5 reads the packed tables and adds the plane gradients into
     texel-major [H*W, C] buffers, in one of three forms
     (:func:`_k5_mode`): fused, where the three line tables fit the shared
@@ -213,9 +310,10 @@ def triplane_features_bwd(planes, lines, packed, xyz, g):
     multiple of 4 or buffers off a 16-byte boundary, one. On CPU tensors:
     :func:`triplane_features_bwd_plain`.
     """
-    if not kernels.wants_kernel(xyz, g, *planes, *lines):
-        return triplane_features_bwd_plain(planes, lines, xyz, g)
     packed_planes, packed_lines, sizes = packed
+    bf16 = table_dtype(packed_planes, packed_lines) == torch.bfloat16
+    if not kernels.wants_kernel(xyz, g, *planes, *lines):
+        return triplane_features_bwd_plain(planes, lines, xyz, g, bf16)
     dims = _check_tables("triplane_features_bwd", packed_planes,
                          packed_lines, sizes, xyz)
     Cs, Ds = dims[3::4], dims[2::4]
@@ -242,7 +340,9 @@ def triplane_features_bwd(planes, lines, packed, xyz, g):
     kernels.launch("triplane_features_bwd", dev,
                    *(t.data_ptr() for t in (xyz, *wide, *line_out,
                                             *line_rows, d_xyz)),
-                   n, *dims, mode)
+                   n, *dims, int(bf16), mode,
+                   counter="triplane_features_bwd_bf16" if bf16
+                   else "triplane_features_bwd")
     if mode != K5_FUSED:
         d_lines = line_grad_tables(line_rows, line_out, Ds)
     d_planes = [rows.reshape(H, W, C).permute(2, 0, 1).contiguous()
@@ -276,6 +376,11 @@ def sample_grids(planes: Sequence[torch.Tensor],
     (views of the parameters); ``packed`` = (packed_planes, packed_lines,
     sizes) must be packed from their current values (``pack_grids``). The
     forward reads the packed tables (K4 or its twin); the gradient reaches
-    xyz and the raw grids (K5 and K6, or the plain twin).
+    xyz and the raw grids (K5 and K6, or the plain twin). The packed
+    tables are f32, or bf16 packed from the grids cast to bf16; the
+    features are f32 either way. With no gradient to take, K4 alone (no
+    autograd node, so ``torch.export`` sees the custom op).
     """
+    if not _needs_grad(xyz, *planes, *lines):
+        return triplane_features(*packed, xyz)
     return _SampleGrids.apply(xyz, packed, *planes, *lines)

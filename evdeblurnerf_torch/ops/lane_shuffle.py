@@ -14,6 +14,8 @@ moves only the compositing scalars between orders:
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/lane_shuffle.cu``; on CPU tensors they run the plain twins below.
+K1's forward and K3 go through the custom ops ``evdn::permute_lanes`` and
+``evdn::cdf_take`` (``kernels.custom_op``), which an exported render calls.
 """
 
 from __future__ import annotations
@@ -35,9 +37,16 @@ def permute_lanes_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _take(x: torch.Tensor, idx: torch.Tensor, backward: bool) -> torch.Tensor:
     """One gather ``x[..., idx]``: K1 (2-D) or K2 (3-D) on CUDA tensors,
     counted as a backward launch when ``backward``; the plain version on
-    CPU tensors."""
+    CPU tensors. K1's forward goes through ``evdn::permute_lanes``."""
+    if x.dim() == 2 and not backward and not (
+            torch.is_grad_enabled() and x.requires_grad):
+        return _K1_OP(x, idx)
     if not kernels.wants_kernel(x, idx):
         return permute_lanes_plain(x, idx)
+    return _launch_take(x, idx, backward)
+
+
+def _launch_take(x, idx, backward):
     ndim = x.dim()
     if ndim not in (2, 3):
         raise ValueError(f"permute_lanes: x must be [R, S] or [R, C, S], got "
@@ -60,6 +69,19 @@ def _take(x: torch.Tensor, idx: torch.Tensor, backward: bool) -> torch.Tensor:
                    out.data_ptr(), *sizes,
                    counter=f"{name}_bwd" if backward else name)
     return out
+
+
+def _k1_impl(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if not kernels.wants_kernel(x, idx):
+        return permute_lanes_plain(x, idx)
+    return _launch_take(x, idx, backward=False)
+
+
+def _k1_fake(x, idx):
+    return x.new_empty((x.shape[0], idx.shape[1]))
+
+
+_K1_OP = kernels.custom_op("permute_lanes", _k1_impl, _k1_fake)
 
 
 class _PermuteLanes(torch.autograd.Function):
@@ -123,12 +145,22 @@ def cdf_take(cdf: torch.Tensor, bins: torch.Tensor, below: torch.Tensor,
     result. Kernel K3 on CUDA tensors (raises if asked for a gradient),
     :func:`cdf_take_plain` on CPU ones.
     """
-    if not kernels.wants_kernel(cdf, bins, below, above):
-        return cdf_take_plain(cdf, bins, below, above)
+    on_card = kernels.wants_kernel(cdf, bins, below, above)
     if torch.is_grad_enabled() and (cdf.requires_grad or bins.requires_grad):
+        if not on_card:
+            return cdf_take_plain(cdf, bins, below, above)
         raise NotImplementedError(
             "cdf_take: K3 is forward-only; pass detached cdf and bins, as "
             "sample_pdf does")
+    return _K3_OP(cdf, bins, below, above)
+
+
+def _k3_impl(cdf: torch.Tensor, bins: torch.Tensor, below: torch.Tensor,
+             above: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    if not kernels.wants_kernel(cdf, bins, below, above):
+        return cdf_take_plain(cdf, bins, below, above)
     for name, t in (("cdf", cdf), ("bins", bins)):
         kernels.check_tensor(f"cdf_take {name}", t, torch.float32, 2)
     for name, t in (("below", below), ("above", above)):
@@ -146,3 +178,10 @@ def cdf_take(cdf: torch.Tensor, bins: torch.Tensor, below: torch.Tensor,
                    *(o.data_ptr() for o in outs),
                    R, cdf.shape[1], bins.shape[1], below.shape[1])
     return tuple(outs)
+
+
+def _k3_fake(cdf, bins, below, above):
+    return tuple(cdf.new_empty(below.shape) for _ in range(4))
+
+
+_K3_OP = kernels.custom_op("cdf_take", _k3_impl, _k3_fake)

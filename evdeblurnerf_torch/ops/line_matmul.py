@@ -24,10 +24,16 @@ import torch
 from .. import kernels
 
 
-def line_grad_plain(idx: torch.Tensor, g: torch.Tensor, D: int
-                    ) -> torch.Tensor:
+PRECISIONS = ("highest", "default")
+
+
+def line_grad_plain(idx: torch.Tensor, g: torch.Tensor, D: int,
+                    precision: str = "highest") -> torch.Tensor:
     """Plain version of K6: ``zeros(D, W).index_add_(0, idx, g)``, with a
-    spare row that takes the indices outside [0, D) and is dropped."""
+    spare row that takes the indices outside [0, D) and is dropped; with
+    ``precision="default"`` g is rounded to bf16 first."""
+    if precision == "default":
+        g = g.to(torch.bfloat16).float()
     idx = torch.where((idx >= 0) & (idx < D), idx, D).long()
     return torch.zeros(D + 1, g.shape[1], dtype=g.dtype,
                        device=g.device).index_add_(0, idx, g)[:D]
@@ -54,20 +60,29 @@ def _check_table(name, idx, g, D):
                          "the kernel takes a table of at least 1 x 1")
 
 
-def line_grad(idx: torch.Tensor, g: torch.Tensor, D: int) -> torch.Tensor:
+def line_grad(idx: torch.Tensor, g: torch.Tensor, D: int,
+              precision: str = "highest") -> torch.Tensor:
     """``[D, W]`` sums of the rows of g [N, W] f32 by their row index idx
-    [N] int32; an index outside [0, D) adds nothing. Kernel K6 on CUDA
-    tensors, any D and W (a table above the kernel's shared-memory tile is
-    split inside the launch; forward-only: raises if ``g`` requires grad),
-    :func:`line_grad_plain` on CPU tensors."""
+    [N] int32; an index outside [0, D) adds nothing. ``precision``: the
+    JAX kernel's two options (``evdeblurnerf_tpu/ops/line_matmul.py:19-23,
+    49-53``), "highest" the exact f32 sums, "default" each element of g
+    rounded to bf16 before the f32 accumulate; no model path takes
+    "default". Kernel K6 on CUDA tensors, any D and W (a table above the
+    kernel's shared-memory tile is split inside the launch; forward-only:
+    raises if ``g`` requires grad), :func:`line_grad_plain` on CPU
+    tensors."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"line_grad: precision {precision!r}, expected one "
+                         f"of {PRECISIONS}")
     if not kernels.wants_kernel(idx, g):
-        return line_grad_plain(idx, g, D)
+        return line_grad_plain(idx, g, D, precision)
     if torch.is_grad_enabled() and g.requires_grad:
         raise NotImplementedError("line_grad: K6 has no backward kernel")
     _check_table("line_grad", idx, g, D)
     out = torch.zeros(D, g.shape[1], dtype=torch.float32, device=g.device)
     kernels.launch("line_grad", g.device, idx.data_ptr(), g.data_ptr(),
-                   out.data_ptr(), g.shape[0], D, g.shape[1])
+                   out.data_ptr(), g.shape[0], D, g.shape[1],
+                   int(precision == "default"))
     return out
 
 

@@ -14,7 +14,12 @@ networks/pdrf/voxnerf.py:132-151): bilinear interpolation with
 
 The packed form is the plain twin of kernel K4
 (``ops/fused_sample.py::triplane_features``), which the renderer calls.
-The TV regularisers of the grids close the module.
+It takes f32 or bf16 packed tables (``--triplane_bf16``): bf16 rows are
+widened and interpolated in f32, or, under the bf16 eval chain
+(``compute_bf16``), every operation of the interpolation runs in bf16, as
+``evdeblurnerf_tpu/ops/triplane.py:238-266,323-350`` does.
+:func:`round_bf16` is the rounding of the training path's tables, exact in
+its backward. The TV regularisers of the grids close the module.
 Conventions follow ``torch.nn.functional.grid_sample``: a coordinate pair
 (x, y) in [-1, 1] indexes (width, height) = (last, second-to-last) grid
 dims.
@@ -117,6 +122,28 @@ def pack_grids(planes: Sequence[torch.Tensor], lines: Sequence[torch.Tensor]):
     return packed_planes, packed_lines, sizes
 
 
+class _RoundBF16(torch.autograd.Function):
+    """Round to bf16 in the forward, pass the gradient unchanged: the
+    JAX package's ``_take_rows_bf16`` custom VJP
+    (``evdeblurnerf_tpu/ops/triplane.py:120-143``), whose backward is the
+    exact f32 scatter. A bare ``t.to(torch.bfloat16).float()`` would round
+    the incoming gradient too, since a cast's backward casts back."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to bf16 values (ties to even), still f32; its
+    gradient is the incoming one, unrounded."""
+    return _RoundBF16.apply(t)
+
+
 def _slot_weights(f: torch.Tensor, size: int):
     """Base row index in [0, size-2] and the two slot weights of coordinate
     f: the tent weights with zeros-padding validity, routed to the slot of
@@ -134,44 +161,65 @@ def _slot_weights(f: torch.Tensor, size: int):
             torch.where(off0, w1, w0))
 
 
+def _rows(packed: torch.Tensor, idx: torch.Tensor, compute_bf16: bool):
+    """Rows ``packed[idx]`` in the type the interpolation runs in: f32
+    (bf16 rows widened, exactly), or bf16 under the bf16 chain."""
+    rows = packed[idx]
+    if compute_bf16:
+        if rows.dtype != torch.bfloat16:
+            raise TypeError("the bf16 chain reads bf16 tables, got "
+                            f"{rows.dtype}")
+        return rows
+    return rows.float()
+
+
 def grid_sample_2d_packed(packed: torch.Tensor, H: int, W: int,
-                          x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample from a packed plane [H*W, 4C]: one row per point.
-    Same weights and validity as :func:`grid_sample_2d`; the slot
-    factoring reorders the f32 sums (~1e-6 relative)."""
+                          x: torch.Tensor, y: torch.Tensor,
+                          compute_bf16: bool = False) -> torch.Tensor:
+    """Bilinear sample from a packed plane [H*W, 4C] (f32 or bf16): one
+    row per point. Same weights and validity as :func:`grid_sample_2d`;
+    the slot factoring reorders the f32 sums (~1e-6 relative). With
+    ``compute_bf16`` the slot weights, products and sums are bf16."""
     C = packed.shape[-1] // 4
     bx, sx0, sx1 = _slot_weights((x + 1.0) * 0.5 * (W - 1), W)
     by, sy0, sy1 = _slot_weights((y + 1.0) * 0.5 * (H - 1), H)
-    rows = packed[by * W + bx]                                       # [N, 4C]
-    return (rows[:, :C] * (sy0 * sx0)[:, None]
-            + rows[:, C:2 * C] * (sy0 * sx1)[:, None]
-            + rows[:, 2 * C:3 * C] * (sy1 * sx0)[:, None]
-            + rows[:, 3 * C:] * (sy1 * sx1)[:, None])
+    rows = _rows(packed, by * W + bx, compute_bf16)                # [N, 4C]
+    dt = rows.dtype
+    return (rows[:, :C] * (sy0 * sx0).to(dt)[:, None]
+            + rows[:, C:2 * C] * (sy0 * sx1).to(dt)[:, None]
+            + rows[:, 2 * C:3 * C] * (sy1 * sx0).to(dt)[:, None]
+            + rows[:, 3 * C:] * (sy1 * sx1).to(dt)[:, None])
 
 
-def grid_sample_1d_packed(packed: torch.Tensor, D: int,
-                          y: torch.Tensor) -> torch.Tensor:
+def grid_sample_1d_packed(packed: torch.Tensor, D: int, y: torch.Tensor,
+                          compute_bf16: bool = False) -> torch.Tensor:
     """Linear sample from a packed line [D, 2C]: one row per point."""
     C = packed.shape[-1] // 2
     b, s0, s1 = _slot_weights((y + 1.0) * 0.5 * (D - 1), D)
-    rows = packed[b]                                                 # [N, 2C]
-    return rows[:, :C] * s0[:, None] + rows[:, C:] * s1[:, None]
+    rows = _rows(packed, b, compute_bf16)                          # [N, 2C]
+    dt = rows.dtype
+    return rows[:, :C] * s0.to(dt)[:, None] + rows[:, C:] * s1.to(dt)[:, None]
 
 
 def triplane_features_packed(packed_planes: Sequence[torch.Tensor],
                              packed_lines: Sequence[torch.Tensor],
                              sizes: Sequence[Tuple[int, int, int]],
-                             xyz: torch.Tensor) -> torch.Tensor:
+                             xyz: torch.Tensor,
+                             compute_bf16: bool = False) -> torch.Tensor:
     """Packed-path equivalent of :func:`triplane_features`, and the plain
-    twin of kernel K4. Returns [N, sum(C_i)] f32."""
+    twin of kernel K4 in its three forms. Returns [N, sum(C_i)] f32 from
+    f32 or bf16 tables, or bf16 under the bf16 chain (``compute_bf16``:
+    bf16 tables, and every product and sum, plane x line and the concat in
+    bf16, each rounded where a bf16 tensor operation rounds)."""
     feats = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
         H, W, D = sizes[i]
         plane_feat = grid_sample_2d_packed(packed_planes[i], H, W,
-                                           xyz[:, m0], xyz[:, m1])
+                                           xyz[:, m0], xyz[:, m1],
+                                           compute_bf16)
         line_feat = grid_sample_1d_packed(packed_lines[i], D,
-                                          xyz[:, VEC_MODE[i]])
+                                          xyz[:, VEC_MODE[i]], compute_bf16)
         feats.append(plane_feat * line_feat)
     return torch.cat(feats, -1)
 

@@ -20,6 +20,13 @@ per-entry flushes and its splits along D and W, each forced by shape, and
 twice in a row. K7 multiplies and adds where
 its plain twin does (no FMA contraction) and must equal it bitwise, with
 exact zeros on the spilled rows.
+
+bf16 tables: K4's bf16-row form (f32 math) and its bf16-compute form (the
+bf16 eval chain, every operation rounded where the twin's bf16 tensor
+operation rounds) must equal their twins bitwise in the vector and the
+scalar kernel; K5's bf16 form is held to K5's 1e-5 against the twin's
+exact f32 backward; K6's "default" precision (the cotangent rounded to
+bf16) to K6's 1e-5 against its twin.
 """
 
 import pytest
@@ -585,18 +592,28 @@ def test_tiny_culled_train_step_card_matches_cpu(dev):
                            held=("mlp_coarse.", "mlp_fine."))
 
 
-def _tiny_step_card_vs_cpu(dev, culls, held=("",)):
+def test_tiny_bf16_train_step_card_matches_cpu(dev):
+    """The tiny step with bf16 tables: the loss and gradients at the same
+    limits, and K4's and K5's bf16 forms launched."""
+    _tiny_step_card_vs_cpu(dev, dict(triplane_bf16=True),
+                           launched=kernels.BF16_TRAIN_KERNELS)
+
+
+def _tiny_step_card_vs_cpu(dev, culls, held=("",),
+                           launched=kernels.TRAIN_KERNELS):
     import chip_smoke
 
     from evdeblurnerf_torch.models.system import build_occ_grid
     from evdeblurnerf_torch.train import state as tstate, step as tstep
 
+    flags = dict(culls)
+    culls = {k: v for k, v in culls.items() if "cull" in k}
     args = chip_smoke.train_args(
         coarse_n_voxels=4096, fine_n_voxels=8192,
         coarse_app_n_comp=[8, 4, 4], fine_app_n_comp=[8, 4, 4],
         coarse_hidden_dim=16, coarse_hidden_dim_color=16, fine_hidden_dim=32,
         fine_hidden_dim_color=32, fine_geo_feat_dim=16, N_samples=16,
-        N_importance=16, perturb=0.0, raw_noise_std=0.0, **culls)
+        N_importance=16, perturb=0.0, raw_noise_std=0.0, **flags)
     step = tstep.build_train_step(args, return_grads=True)
     sw = tstep.schedule_weights_fn(args)(1)
     aabb = ((-1.6, -1.7, -1.0), (1.7, 1.6, 1.0))
@@ -626,7 +643,7 @@ def _tiny_step_card_vs_cpu(dev, culls, held=("",)):
                    occ_grid=None if grid is None else grid.to(device))
         if device.type == "cuda":
             assert all(kernels.LAUNCHES[k] > 0
-                       for k in kernels.TRAIN_KERNELS), kernels.LAUNCHES
+                       for k in launched), kernels.LAUNCHES
         results.append(aux)
     cpu, card = results
     torch.testing.assert_close(card["loss"].cpu(), cpu["loss"], rtol=1e-5,
@@ -650,3 +667,114 @@ def _tiny_step_card_vs_cpu(dev, culls, held=("",)):
     if culls:
         assert selections.done() <= 1e-3, (selections.n_diff,
                                            selections.n_pos)
+
+
+def _misaligned_bf16(t):
+    """A contiguous copy of bf16 ``t`` that starts 2 bytes off an 8-byte
+    boundary (the vector forms load four bf16 at once)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 8 == 2 and out.is_contiguous()
+    return out
+
+
+def _bf16_packed(planes, lines):
+    return triplane.pack_grids([p.to(torch.bfloat16) for p in planes],
+                               [l.to(torch.bfloat16) for l in lines])
+
+
+@pytest.mark.parametrize("compute", [False, True])
+@pytest.mark.parametrize("comps,grid,n,shift,mode", [
+    ((8, 4, 4), (19, 17, 13), 5000, None, fused_sample.K4_FLOAT4),
+    ((64, 16, 16), (302, 302, 183), 1 << 20, None, fused_sample.K4_FLOAT4),
+    ((24, 132, 4), (9, 11, 7), 3001, None, fused_sample.K4_FLOAT4),
+    ((6, 3, 5), (19, 17, 13), 5000, None, fused_sample.K4_SCALAR),
+    # a table off an 8-byte boundary takes the scalar kernel
+    ((8, 4, 4), (19, 17, 13), 5000, "plane", fused_sample.K4_SCALAR),
+    ((64, 16, 16), (40, 36, 33), 70001, "line", fused_sample.K4_SCALAR)])
+def test_triplane_bf16_kernels_match_plain(dev, comps, grid, n, shift, mode,
+                                           compute):
+    """K4 over bf16 tables, in the bf16-row form (f32 math and output) and
+    the bf16-compute form (the eval chain, bf16 output), each in the
+    kernel the shapes or an unaligned view force: bitwise equal to the
+    twin, and counted under its own name."""
+    g = torch.Generator(device=dev).manual_seed(n + int(compute))
+    planes, lines = _tables(dev, g, comps, grid)
+    pp, pl, sizes = _bf16_packed(planes, lines)
+    if shift == "plane":
+        pp = [pp[0], _misaligned_bf16(pp[1]), pp[2]]
+    elif shift == "line":
+        pl = [pl[0], pl[1], _misaligned_bf16(pl[2])]
+    xyz = _k4_points(dev, g, n, grid)
+    probe = torch.empty(4, device=dev, dtype=torch.bfloat16 if compute
+                        else torch.float32)
+    assert fused_sample._k4_mode(comps, (*pp, *pl, probe)) == mode
+    kernels.reset_launches()
+    got = fused_sample.triplane_features(pp, pl, sizes, xyz,
+                                         compute_bf16=compute)
+    name = ("triplane_features_bf16_compute" if compute
+            else "triplane_features_bf16")
+    assert kernels.LAUNCHES[name] == 1
+    assert kernels.LAUNCHES["triplane_features"] == 0
+    want = triplane.triplane_features_packed(pp, pl, sizes, xyz,
+                                             compute_bf16=compute)
+    assert got.dtype == want.dtype == (torch.bfloat16 if compute
+                                       else torch.float32)
+    assert got.shape == (n, sum(comps))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("comps,grid,n,stream,mode", [
+    ((8, 4, 4), (19, 17, 13), 5000, "uniform", "fused"),
+    ((64, 16, 16), (302, 302, 183), 1 << 20, "uniform", "fused"),
+    ((64, 16, 16), (605, 605, 366), 1 << 19, "rays", "fused"),
+    ((12, 4, 20), (19, 17, 13), 5001, "uniform", "fused"),
+    ((64, 16, 16), (40, 36, 1024), 1 << 18, "rays", "float4"),
+    ((160, 4, 4), (9, 8, 7), 777, "uniform", "float4"),
+    ((6, 3, 5), (19, 17, 13), 5000, "uniform", "scalar")])
+def test_triplane_bwd_bf16_kernel_matches_plain(dev, comps, grid, n, stream,
+                                                mode):
+    """K5 over the bf16 pack the forward reads, each kernel forced by
+    shape: every gradient within 1e-5 of the twin (autograd through the
+    packing, the straight-through bf16 rounding and the sampler), the grid
+    gradients exact f32."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    planes, lines, _, xyz, cot = _grad_case(dev, g, comps, grid, n, stream)
+    packed = _bf16_packed(planes, lines)
+    assert fused_sample._k5_mode(
+        comps, [s[2] for s in packed[2]], (*packed[0], *packed[1], cot),
+        dev) == dict(scalar=fused_sample.K5_SCALAR,
+                     float4=fused_sample.K5_FLOAT4,
+                     fused=fused_sample.K5_FUSED)[mode]
+    kernels.reset_launches()
+    got = fused_sample.triplane_features_bwd(planes, lines, packed, xyz, cot)
+    assert kernels.LAUNCHES["triplane_features_bwd_bf16"] == 1
+    assert kernels.LAUNCHES["triplane_features_bwd"] == 0
+    want = fused_sample.triplane_features_bwd_plain(planes, lines, xyz, cot,
+                                                    table_bf16=True)
+    want = [*want[0], *want[1], want[2]]
+    got = [*got[0], *got[1], got[2]]
+    _assert_grads_close(got, want)
+    assert not torch.equal(got[0], got[0].to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("D,W,n", [(366, 128, 1 << 20), (605, 32, 300000),
+                                   (2000, 64, 200000), (7, 70, 5000)])
+def test_line_grad_default_precision_matches_plain(dev, D, W, n):
+    """K6's "default" precision: the cotangent rounded to bf16 as it is
+    loaded, summed in f32; within 1e-5 of the twin's largest, and away
+    from the "highest" sums."""
+    g = torch.Generator(device=dev).manual_seed(n + 1)
+    idx = _line_idx(dev, g, D, n, "uniform")
+    rows = torch.randn(n, W, generator=g, device=dev)
+    kernels.reset_launches()
+    got = line_matmul.line_grad(idx, rows, D, precision="default")
+    assert kernels.LAUNCHES["line_grad"] == 1
+    want = line_matmul.line_grad_plain(idx, rows, D, precision="default")
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    exact = line_matmul.line_grad_plain(idx, rows, D)
+    assert float((exact - want).abs().max()) > tol
+    with pytest.raises(ValueError, match="precision"):
+        line_matmul.line_grad(idx, rows, D, precision="high")

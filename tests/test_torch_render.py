@@ -293,12 +293,17 @@ def test_load_network_state_dict_reads_reference_tar(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,match", [
-    ("triplane_bf16", True, "item 24"),
+    ("triplane_bf16", True, "triplane_bf16"),
 ])
 def test_unported_settings_raise(flag, value, match):
+    """A setting the port once refused here now builds: ``--triplane_bf16``
+    reaches the render config (``match``, the field it sets) and the model
+    packs bf16 tables."""
     args = _serve_args("rbk_awp", **{flag: value})
-    with pytest.raises(NotImplementedError, match=match):
-        config_from_args(args, oc.AABB, oc.H, oc.W, oc.FOCAL, 0.0, 1.0)
+    cfg = config_from_args(args, oc.AABB, oc.H, oc.W, oc.FOCAL, 0.0, 1.0)
+    assert getattr(cfg, match) is value
+    model = EvDeblurNeRF(cfg)
+    assert model.mlp_coarse.packed_plane_0.dtype == torch.bfloat16
 
 
 def test_learned_crf_raises():

@@ -162,20 +162,22 @@ def k4_inputs(dev, g, case):
     return planes, lines, triplane.pack_grids(planes, lines), xyz
 
 
-def k4_traffic(packed, xyz):
-    """Bytes K4 moves over the packed tables at these points, two ways:
+def k4_traffic(packed, xyz, out_bytes=4):
+    """Bytes K4 moves over the packed tables (f32 or bf16) at these points,
+    two ways:
     ``distinct`` counts every packed row that some point reads once (what
     an unbounded cache would leave), ``every_point`` every point's three
     plane rows (no cache at all: uniform points on tables far above the L2)
     and the distinct line rows (the line tables, 200 KB, stay cached); both
-    add xyz read and the output written once."""
+    add xyz read and the output written once (``out_bytes`` an element:
+    4 f32, 2 under the bf16 eval chain)."""
     import torch
 
     from evdeblurnerf_torch.ops import triplane
 
     planes, lines, sizes = packed
     n = xyz.shape[0]
-    fixed = 4 * n * (3 + sum(ln.shape[1] // 2 for ln in lines))
+    fixed = n * (4 * 3 + out_bytes * sum(ln.shape[1] // 2 for ln in lines))
     distinct = every = 0
 
     def base(col, size):
@@ -186,7 +188,8 @@ def k4_traffic(packed, xyz):
         m0, m1 = triplane.MAT_MODE[i]
         texel = base(m1, H) * W + base(m0, W)
         row = base(triplane.VEC_MODE[i], D)
-        prow, lrow = 4 * planes[i].shape[1], 4 * lines[i].shape[1]
+        prow = planes[i].element_size() * planes[i].shape[1]
+        lrow = lines[i].element_size() * lines[i].shape[1]
         line_bytes = int(torch.unique(row).numel()) * lrow
         distinct += int(torch.unique(texel).numel()) * prow + line_bytes
         every += n * prow + line_bytes
