@@ -143,8 +143,8 @@ kernel and case, phase 8 a few):
 14. bf16 tables (``--triplane_bf16``): (a) K4's bf16-row form at 2,097,152
     uniform points and at the step's 1,310,720 ray-ordered points, and its
     bf16-compute form (the bf16 eval chain) at an eval chunk's 4,194,304
-    points, each in its vector and its scalar kernel bitwise equal to its
-    plain version, and K5's bf16 form at the step's launch sizes (1,310,720
+    points, each in its vector kernel (eight channels a lane) and its
+    scalar kernel bitwise equal to its plain version, and K5's bf16 form at the step's launch sizes (1,310,720
     fine and 655,360 coarse points, uniform) and on the ray-ordered
     stream, every gradient within 1e-5 of the plain version's largest (the
     grid gradient exact f32, not bf16-rounded), each with its times,
@@ -2146,7 +2146,7 @@ def _bf16_kernels(dev, g, bench, timing):
         pp, pl, sizes = packed
         off = ([pp[0], _shifted(pp[1]), pp[2]], pl, sizes)
         check(fused_sample._k4_mode(bench.N_COMP, (*pp, *pl, got))
-              == fused_sample.K4_FLOAT4
+              == fused_sample.K4_VEC8
               and fused_sample._k4_mode(bench.N_COMP, (*off[0], *pl))
               == fused_sample.K4_SCALAR, f"K4 {name}: the wrong form")
         scalar = fused_sample.triplane_features(*off, xyz,

@@ -118,13 +118,15 @@
 //   * K4 over bf16 rows: the rows are widened to f32 on load (exact: a
 //     shift of the bits), and the math and the output stay f32, so the
 //     kernel equals its plain version (the f32 sampler over the widened
-//     rows) bitwise. The design is the f32 one: C / 4 lanes a point, four
-//     channels a lane; the slots move as 8-byte loads (a 16-byte load
-//     would hold 8 channels and halve the lanes a point: a later
-//     measurement's question), so the vector form asks for every C a
-//     multiple of 4 and the tables on an 8-byte boundary, else the scalar
-//     form. At the paper width the packed tables are half the f32 ones
-//     (~0.25 GB), the bound's output and xyz do not shrink;
+//     rows) bitwise. The design is the f32 one, with eight channels a
+//     lane: C / 8 lanes a point, the slots moving as 16-byte loads of 8
+//     bf16 (mode 3; 9-14% less kernel time than four channels a lane on
+//     8-byte loads at the paper's shapes, the same sectors in half the
+//     load instructions). Every C a multiple of 8 and every table and the
+//     output on a 16-byte boundary, else four channels a lane (every C a
+//     multiple of 4, an 8-byte boundary), else the scalar form. At the
+//     paper width the packed tables are half the f32 ones (~0.25 GB), the
+//     bound's output and xyz do not shrink;
 //   * K4 under the bf16 eval chain (table_bf16 and not is_train in the JAX
 //     package's voxnerf.py:107-112): rows, the slot weights, every product
 //     and sum, plane x line and the output [N, C0 + C1 + C2] in bf16. Each
@@ -134,7 +136,8 @@
 //     too equals its plain version bitwise; XLA may round such chains at
 //     other places (on the CPU test inputs it does not), so the JAX
 //     function may differ from both by a few bf16 ulps. Bound: bytes, as
-//     the f32 form, plus ~12 roundings a channel to issue;
+//     the f32 form, plus ~12 roundings a channel to issue; its lanes are
+//     the row form's (eight channels a lane: 1-4% less kernel time);
 //   * K5 over bf16 rows: pf and lf are recomputed from the same bf16 pack
 //     the forward read, widened as above; the cotangent, every gradient,
 //     the float4 atomics into the raw f32 grids and the line tiles in
@@ -178,6 +181,21 @@ __device__ __forceinline__ float4 ld4(const bf16_bits* p) {
                      __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16),
                      __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Eight bf16 elements on a 16-byte boundary, widened: channels 0-3 and
+// 4-7.
+__device__ __forceinline__ void ld8(const bf16_bits* p, float4* lo,
+                                    float4* hi) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  *lo = make_float4(__uint_as_float(u.x << 16),
+                    __uint_as_float(u.x & 0xffff0000u),
+                    __uint_as_float(u.y << 16),
+                    __uint_as_float(u.y & 0xffff0000u));
+  *hi = make_float4(__uint_as_float(u.z << 16),
+                    __uint_as_float(u.z & 0xffff0000u),
+                    __uint_as_float(u.w << 16),
+                    __uint_as_float(u.w & 0xffff0000u));
 }
 
 template <typename T>
@@ -265,6 +283,38 @@ __device__ __forceinline__ void store4(bf16_bits* p, float4 v) {
   u.y = evdn::bf16_bits_of(v.z) | (evdn::bf16_bits_of(v.w) << 16);
   __stcs(reinterpret_cast<uint2*>(p), u);
 }
+// Eight outputs on a 16-byte boundary (two f32 stores, or one of bf16).
+__device__ __forceinline__ void store8(float* p, float4 lo, float4 hi) {
+  store4(p, lo);
+  store4(p + 4, hi);
+}
+__device__ __forceinline__ void store8(bf16_bits* p, float4 lo, float4 hi) {
+  uint4 u;
+  u.x = evdn::bf16_bits_of(lo.x) | (evdn::bf16_bits_of(lo.y) << 16);
+  u.y = evdn::bf16_bits_of(lo.z) | (evdn::bf16_bits_of(lo.w) << 16);
+  u.z = evdn::bf16_bits_of(hi.x) | (evdn::bf16_bits_of(hi.y) << 16);
+  u.w = evdn::bf16_bits_of(hi.z) | (evdn::bf16_bits_of(hi.w) << 16);
+  __stcs(reinterpret_cast<uint4*>(p), u);
+}
+
+// Four channels of the output from their four plane slots and two line
+// slots; the weights as in feature().
+template <bool kBf16Math>
+__device__ __forceinline__ float4 feature4(float4 s00, float4 s01,
+                                           float4 s10, float4 s11,
+                                           float4 l0, float4 l1,
+                                           const float* w) {
+  float4 r;
+  r.x = feature<kBf16Math>(s00.x, s01.x, s10.x, s11.x, l0.x, l1.x, w[0],
+                           w[1], w[2], w[3], w[4], w[5]);
+  r.y = feature<kBf16Math>(s00.y, s01.y, s10.y, s11.y, l0.y, l1.y, w[0],
+                           w[1], w[2], w[3], w[4], w[5]);
+  r.z = feature<kBf16Math>(s00.z, s01.z, s10.z, s11.z, l0.z, l1.z, w[0],
+                           w[1], w[2], w[3], w[4], w[5]);
+  r.w = feature<kBf16Math>(s00.w, s01.w, s10.w, s11.w, l0.w, l1.w, w[0],
+                           w[1], w[2], w[3], w[4], w[5]);
+  return r;
+}
 
 template <typename T, bool kBf16Math>
 __global__ void triplane_fwd_scalar_kernel(const float* __restrict__ xyz,
@@ -318,11 +368,13 @@ __device__ __forceinline__ int group_shift(int q4) {
   return shift;
 }
 
-// Every C a multiple of 4, every table and the output on a boundary of
-// four elements (16 bytes f32, 8 bytes bf16). Thread tid < 3 * 64 prepares
-// point tid % 64 on projection tid / 64; then thread tid works on point
-// tid / G of the block's 64, G the lanes a point of the projection at hand.
-template <typename T, bool kBf16Math>
+// Every C a multiple of kVec, every table and the output on a boundary of
+// kVec elements (kVec 4: 16 bytes f32, 8 bytes bf16; kVec 8, bf16 tables
+// only: 16 bytes). Thread tid < 3 * 64 prepares point tid % 64 on
+// projection tid / 64; then thread tid works on point tid / G of the
+// block's 64, G the lanes a point of the projection at hand, kVec channels
+// a lane.
+template <typename T, bool kBf16Math, int kVec = 4>
 __global__ void __launch_bounds__(evdn::kThreads)
     triplane_fwd_kernel(const float* __restrict__ xyz,
                         const __grid_constant__ Tables t,
@@ -360,7 +412,7 @@ __global__ void __launch_bounds__(evdn::kThreads)
   for (int i = 0; i < 3; ++i) {
     const Projection& p = t.p[i];
     const int C = p.C;
-    const int shift = group_shift(C >> 2);
+    const int shift = group_shift(C / kVec);
     const int G = 1 << shift;
     const int lane = tid & (G - 1);
     const int groups = evdn::kThreads >> shift;
@@ -373,26 +425,30 @@ __global__ void __launch_bounds__(evdn::kThreads)
       const int64_t pt = p0 + pl;
       if (pt >= n) break;
       const int k = i * kFwdPoints + pl;
-      const float w00 = s_w[0][k], w01 = s_w[1][k], w10 = s_w[2][k];
-      const float w11 = s_w[3][k], q0 = s_w[4][k], q1 = s_w[5][k];
+      const float w[6] = {s_w[0][k], s_w[1][k], s_w[2][k],
+                          s_w[3][k], s_w[4][k], s_w[5][k]};
       const T* pr =
           plane_of<T>(p) + static_cast<int64_t>(s_texel[k]) * pstride;
       const T* lr = line_of<T>(p) + static_cast<int64_t>(s_row[k]) * lstride;
       OutT<kBf16Math>* o = out + pt * t.ctot + off;
-      for (int c = lane * 4; c < C; c += G * 4) {
-        const float4 s00 = ld4(pr + c), s01 = ld4(pr + C + c);
-        const float4 s10 = ld4(pr + o10 + c), s11 = ld4(pr + o10 + C + c);
-        const float4 l0 = ld4(lr + c), l1 = ld4(lr + C + c);
-        float4 r;
-        r.x = feature<kBf16Math>(s00.x, s01.x, s10.x, s11.x, l0.x, l1.x, w00,
-                                 w01, w10, w11, q0, q1);
-        r.y = feature<kBf16Math>(s00.y, s01.y, s10.y, s11.y, l0.y, l1.y, w00,
-                                 w01, w10, w11, q0, q1);
-        r.z = feature<kBf16Math>(s00.z, s01.z, s10.z, s11.z, l0.z, l1.z, w00,
-                                 w01, w10, w11, q0, q1);
-        r.w = feature<kBf16Math>(s00.w, s01.w, s10.w, s11.w, l0.w, l1.w, w00,
-                                 w01, w10, w11, q0, q1);
-        store4(o + c, r);
+      for (int c = lane * kVec; c < C; c += G * kVec) {
+        if constexpr (kVec == 8) {
+          float4 a00, b00, a01, b01, a10, b10, a11, b11, a0, b0, a1, b1;
+          ld8(pr + c, &a00, &b00);
+          ld8(pr + C + c, &a01, &b01);
+          ld8(pr + o10 + c, &a10, &b10);
+          ld8(pr + o10 + C + c, &a11, &b11);
+          ld8(lr + c, &a0, &b0);
+          ld8(lr + C + c, &a1, &b1);
+          store8(o + c,
+                 feature4<kBf16Math>(a00, a01, a10, a11, a0, a1, w),
+                 feature4<kBf16Math>(b00, b01, b10, b11, b0, b1, w));
+        } else {
+          store4(o + c, feature4<kBf16Math>(
+                            ld4(pr + c), ld4(pr + C + c), ld4(pr + o10 + c),
+                            ld4(pr + o10 + C + c), ld4(lr + c),
+                            ld4(lr + C + c), w));
+        }
       }
     }
     off += C;
@@ -839,6 +895,14 @@ template <typename T, bool kBf16Math>
 void launch_fwd(const float* xyz, const Tables& t, void* out, int64_t n,
                 int mode, cudaStream_t stream) {
   auto* o = static_cast<OutT<kBf16Math>*>(out);
+  if constexpr (std::is_same_v<T, bf16_bits>) {
+    if (mode == 3) {
+      triplane_fwd_kernel<T, kBf16Math, 8>
+          <<<evdn::blocks_for(n, kFwdPoints), evdn::kThreads, 0, stream>>>(
+              xyz, t, o, n);
+      return;
+    }
+  }
   if (mode) {
     triplane_fwd_kernel<T, kBf16Math>
         <<<evdn::blocks_for(n, kFwdPoints), evdn::kThreads, 0, stream>>>(
@@ -884,11 +948,13 @@ int launch_bwd(const float* xyz, const Tables& t, const float* g,
 
 }  // namespace
 
-// mode 0: the scalar kernel, 1: the vector kernel, both over the
-// neighbour-packed tables; 2: the vector kernel over texel-major unpacked
-// tables (plane* [H * W, C], line* [D, C]; f32 only). tables 0: f32 tables
-// and output; 1: bf16 tables, f32 math and output; 2: bf16 tables, math
-// and output (the bf16 eval chain).
+// mode 0: the scalar kernel, 1: the vector kernel (four channels a lane),
+// both over the neighbour-packed tables; 2: the vector kernel over
+// texel-major unpacked tables (plane* [H * W, C], line* [D, C]; f32 only);
+// 3: the vector kernel on eight channels a lane (bf16 tables, every C a
+// multiple of 8, tables and output on a 16-byte boundary). tables 0: f32
+// tables and output; 1: bf16 tables, f32 math and output; 2: bf16 tables,
+// math and output (the bf16 eval chain).
 EVDN_API int evdn_triplane_features(
     const float* xyz, const void* plane0, const void* plane1,
     const void* plane2, const void* line0, const void* line1,
@@ -900,7 +966,8 @@ EVDN_API int evdn_triplane_features(
                          D0, C0, H1, W1, D1, C1, H2, W2, D2, C2);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if ((mode && (C0 % 4 || C1 % 4 || C2 % 4)) || tables < 0 || tables > 2 ||
-      (mode == 2 && tables))
+      mode < 0 || mode > 3 || (mode == 2 && tables) ||
+      (mode == 3 && (!tables || C0 % 8 || C1 % 8 || C2 % 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   t.unpacked = mode == 2;
   if (tables == 0)

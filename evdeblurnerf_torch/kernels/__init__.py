@@ -31,7 +31,8 @@ types) are also custom ops of the dispatcher, ``evdn::<name>``
 :func:`wants_kernel` says, and a fake implementation gives shapes, so
 ``torch.export`` traces a render into a program that calls them
 (``serving.export_renderer``); loading such a program needs the op
-modules imported, nothing else of the package.
+modules imported, nothing else of the package. Outside a trace the
+wrappers call the same implementation directly, without the dispatcher.
 
 Counterpart of the dispatch in ``evdeblurnerf_tpu/ops/lane_shuffle.py``
 (``use_pallas``/``_take_impl``), without the TPU's shard_map wrapper and
@@ -109,11 +110,22 @@ def custom_op(name: str, impl, fake):
     annotations give the schema, serves every device and chooses as every
     wrapper does: the kernel where :func:`wants_kernel` says so, else the
     plain version; ``fake`` gives the outputs' shapes under tracing.
-    Returns the op; its inputs are not mutated and its outputs are new
+
+    Returns a function of the op's arguments that calls the op while
+    ``torch.export`` (or ``torch.compile``) traces, so the traced program
+    holds it, and ``impl`` itself otherwise: the dispatcher's round trip
+    costs the host tens of microseconds a call, which an eager step or
+    render need not pay. Inputs are not mutated; outputs are new
     tensors."""
     op = torch.library.custom_op(f"evdn::{name}", impl, mutates_args=())
     op.register_fake(fake)
-    return op
+
+    def call(*args):
+        if torch.compiler.is_compiling():
+            return op(*args)
+        return impl(*args)
+
+    return call
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -24,7 +24,9 @@ packed sampler).
 bf16 tables (``--triplane_bf16``): the packed tables may be bf16, cast
 from the grids before packing. K4 then widens the rows and interpolates in
 f32, or, under the bf16 eval chain (``compute_bf16``), runs every
-operation in bf16 and writes bf16 features; K5 reads the same bf16 pack
+operation in bf16 and writes bf16 features; either way on eight channels
+a lane (16-byte loads) where every component count is a multiple of 8,
+else as over f32 tables; K5 reads the same bf16 pack
 and adds exact f32 gradients into the raw grids. Each form has its own
 launch counter (:data:`K4_COUNTERS`, ``triplane_features_bwd_bf16``).
 
@@ -32,6 +34,7 @@ K4 is the custom op ``evdn::triplane_features`` (``kernels.custom_op``):
 it launches the kernel on CUDA tensors and runs the plain twin on CPU
 tensors, and its fake implementation gives ``torch.export`` the output's
 shape, so an exported render holds the op (``serving.export_renderer``).
+Outside a trace the wrapper calls the op's implementation directly.
 """
 
 from __future__ import annotations
@@ -89,8 +92,9 @@ def _check_tables(name, packed_planes, packed_lines, sizes, xyz,
     return dims
 
 
-# the forms of kernel K4 (csrc/fused_sample.cu)
-K4_SCALAR, K4_FLOAT4, K4_UNPACKED = 0, 1, 2
+# the forms of kernel K4 (csrc/fused_sample.cu); K4_VEC8: eight channels a
+# lane on 16-byte loads, bf16 tables only (:func:`_k4_mode`)
+K4_SCALAR, K4_FLOAT4, K4_UNPACKED, K4_VEC8 = 0, 1, 2, 3
 # the table types K4 reads: f32; bf16 rows, f32 math and output; bf16 rows,
 # math and output (the bf16 eval chain)
 K4_F32, K4_BF16, K4_BF16_COMPUTE = 0, 1, 2
@@ -100,19 +104,25 @@ K4_COUNTERS = {K4_F32: "triplane_features",
                K4_BF16_COMPUTE: "triplane_features_bf16_compute"}
 
 
-def _vector_aligned(t: torch.Tensor) -> bool:
-    """Whether ``t`` lies on the boundary of four of its elements, what
-    the vector forms load and store at once: 16 bytes for f32, 8 for
-    bf16."""
-    return t.data_ptr() % (4 * t.element_size()) == 0
+def _vector_aligned(t: torch.Tensor, vec: int = 4) -> bool:
+    """Whether ``t`` lies on the boundary of one vector access of ``vec``
+    of its elements, at most 16 bytes: four elements are 16 bytes of f32,
+    8 of bf16; eight bf16 are 16 bytes, and eight f32 go out as two
+    16-byte stores."""
+    return t.data_ptr() % min(16, vec * t.element_size()) == 0
 
 
 def _k4_mode(Cs, wide) -> int:
-    """Which K4 kernel these shapes take: ``K4_FLOAT4`` (four channels a
-    lane, 16-byte loads and stores of f32, 8-byte ones of bf16) when every
-    component count is a multiple of 4 and every tensor of ``wide`` (the
-    tables, the output) lies on a boundary of four elements, else
-    ``K4_SCALAR``."""
+    """Which K4 kernel these shapes take, ``wide`` being the tables and
+    the output: over bf16 tables ``K4_VEC8`` (eight channels a lane,
+    16-byte loads) when every component count is a multiple of 8 and
+    every tensor of ``wide`` lies on a 16-byte boundary; else
+    ``K4_FLOAT4`` (four channels a lane, 16-byte loads of f32, 8-byte ones
+    of bf16) when every component count is a multiple of 4 and every
+    tensor lies on a boundary of four elements; else ``K4_SCALAR``."""
+    if wide[0].dtype == torch.bfloat16 and not any(C % 8 for C in Cs) and \
+            all(_vector_aligned(t, 8) for t in wide):
+        return K4_VEC8
     if any(C % 4 for C in Cs) or not all(map(_vector_aligned, wide)):
         return K4_SCALAR
     return K4_FLOAT4
@@ -123,7 +133,10 @@ def _needs_grad(*tensors) -> bool:
 
 
 def _launch_k4(name, planes, lines, sizes, xyz, slots=(4, 2),
-               compute_bf16=False):
+               compute_bf16=False, mode=None):
+    """Launch K4 in the form ``mode``: by default what :func:`_k4_mode`
+    picks; ``K4_FLOAT4`` or ``K4_VEC8`` when asked (the bench tool's
+    comparison of the two vector forms over bf16 tables)."""
     tables = (*planes, *lines)
     if _needs_grad(xyz, *tables):
         raise NotImplementedError(
@@ -139,7 +152,17 @@ def _launch_k4(name, planes, lines, sizes, xyz, slots=(4, 2),
     out = torch.empty((xyz.shape[0], sum(Cs)),
                       dtype=torch.bfloat16 if compute_bf16 else torch.float32,
                       device=xyz.device)
-    mode = _k4_mode(Cs, (*tables, out))
+    if mode is None:
+        mode = _k4_mode(Cs, (*tables, out))
+    else:
+        vec = {K4_FLOAT4: 4, K4_VEC8: 8}.get(mode)
+        if vec is None or (vec == 8 and not bf16) or any(
+                C % vec for C in Cs) or not all(
+                    _vector_aligned(t, vec) for t in (*tables, out)):
+            raise ValueError(
+                f"{name}: K4 form {mode} takes {vec} channels a lane "
+                "(8: bf16 tables only), every component count a multiple "
+                "of it, every table and the output on its boundary")
     if slots != (4, 2):
         if mode != K4_FLOAT4 or bf16:
             raise ValueError(
@@ -191,7 +214,8 @@ def triplane_features(packed_planes: Sequence[torch.Tensor],
     f32, or bf16 under the bf16 eval chain (``compute_bf16``, bf16 tables
     only). Kernel K4 on CUDA tensors, in the form :func:`_k4_mode` picks,
     :func:`..ops.triplane.triplane_features_packed` on CPU tensors, both
-    through the custom op ``evdn::triplane_features``. On CPU tensors that
+    through the custom op ``evdn::triplane_features`` under a trace and
+    its implementation otherwise. On CPU tensors that
     need a gradient the plain twin runs under autograd (K4 itself is
     forward-only: :func:`sample_grids` differentiates).
     """

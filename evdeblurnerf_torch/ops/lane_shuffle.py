@@ -15,7 +15,8 @@ moves only the compositing scalars between orders:
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/lane_shuffle.cu``; on CPU tensors they run the plain twins below.
 K1's forward and K3 go through the custom ops ``evdn::permute_lanes`` and
-``evdn::cdf_take`` (``kernels.custom_op``), which an exported render calls.
+``evdn::cdf_take`` (``kernels.custom_op``) under a trace, which an
+exported render calls, and their implementations directly otherwise.
 """
 
 from __future__ import annotations

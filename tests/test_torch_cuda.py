@@ -669,13 +669,15 @@ def _tiny_step_card_vs_cpu(dev, culls, held=("",),
                                            selections.n_pos)
 
 
-def _misaligned_bf16(t):
-    """A contiguous copy of bf16 ``t`` that starts 2 bytes off an 8-byte
-    boundary (the vector forms load four bf16 at once)."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
+def _misaligned_bf16(t, off=1):
+    """A contiguous copy of bf16 ``t`` that starts ``off`` elements past a
+    16-byte boundary: 1 puts it 2 bytes off an 8-byte boundary (no vector
+    form reads it), 4 on an 8-byte boundary off a 16-byte one (four
+    channels a lane read it, eight do not)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[off:off + t.numel()].view(t.shape)
     out.copy_(t)
-    assert out.data_ptr() % 8 == 2 and out.is_contiguous()
+    assert out.data_ptr() % 16 == 2 * off and out.is_contiguous()
     return out
 
 
@@ -687,12 +689,15 @@ def _bf16_packed(planes, lines):
 @pytest.mark.parametrize("compute", [False, True])
 @pytest.mark.parametrize("comps,grid,n,shift,mode", [
     ((8, 4, 4), (19, 17, 13), 5000, None, fused_sample.K4_FLOAT4),
-    ((64, 16, 16), (302, 302, 183), 1 << 20, None, fused_sample.K4_FLOAT4),
+    ((64, 16, 16), (302, 302, 183), 1 << 20, None, fused_sample.K4_VEC8),
     ((24, 132, 4), (9, 11, 7), 3001, None, fused_sample.K4_FLOAT4),
+    ((8, 8, 16), (19, 17, 13), 5000, None, fused_sample.K4_VEC8),
     ((6, 3, 5), (19, 17, 13), 5000, None, fused_sample.K4_SCALAR),
-    # a table off an 8-byte boundary takes the scalar kernel
+    # a table off an 8-byte boundary takes the scalar kernel, one on an
+    # 8-byte boundary off a 16-byte one four channels a lane
     ((8, 4, 4), (19, 17, 13), 5000, "plane", fused_sample.K4_SCALAR),
-    ((64, 16, 16), (40, 36, 33), 70001, "line", fused_sample.K4_SCALAR)])
+    ((64, 16, 16), (40, 36, 33), 70001, "line", fused_sample.K4_SCALAR),
+    ((64, 16, 16), (40, 36, 33), 70001, "plane8", fused_sample.K4_FLOAT4)])
 def test_triplane_bf16_kernels_match_plain(dev, comps, grid, n, shift, mode,
                                            compute):
     """K4 over bf16 tables, in the bf16-row form (f32 math and output) and
@@ -704,10 +709,12 @@ def test_triplane_bf16_kernels_match_plain(dev, comps, grid, n, shift, mode,
     pp, pl, sizes = _bf16_packed(planes, lines)
     if shift == "plane":
         pp = [pp[0], _misaligned_bf16(pp[1]), pp[2]]
+    elif shift == "plane8":
+        pp = [pp[0], _misaligned_bf16(pp[1], 4), pp[2]]
     elif shift == "line":
         pl = [pl[0], pl[1], _misaligned_bf16(pl[2])]
     xyz = _k4_points(dev, g, n, grid)
-    probe = torch.empty(4, device=dev, dtype=torch.bfloat16 if compute
+    probe = torch.empty(8, device=dev, dtype=torch.bfloat16 if compute
                         else torch.float32)
     assert fused_sample._k4_mode(comps, (*pp, *pl, probe)) == mode
     kernels.reset_launches()
@@ -723,6 +730,43 @@ def test_triplane_bf16_kernels_match_plain(dev, comps, grid, n, shift, mode,
                                        else torch.float32)
     assert got.shape == (n, sum(comps))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("compute", [False, True])
+@pytest.mark.parametrize("comps,grid,n", [
+    ((8, 8, 16), (19, 17, 13), 5000),
+    ((64, 16, 16), (302, 302, 183), 1 << 20)])
+def test_triplane_bf16_vec8_kernel_matches_plain(dev, comps, grid, n,
+                                                 compute):
+    """K4's vector kernel on eight channels a lane (16-byte bf16 loads),
+    asked for as the bench tool asks: bitwise equal to the twin in both
+    bf16 forms; component counts that are no multiple of 8, f32 tables or
+    a table off a 16-byte boundary are refused, and four channels a lane
+    asked for give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(n + int(compute))
+    planes, lines = _tables(dev, g, comps, grid)
+    pp, pl, sizes = _bf16_packed(planes, lines)
+    xyz = _k4_points(dev, g, n, grid)
+    got = fused_sample._launch_k4("k4", pp, pl, sizes, xyz,
+                                  compute_bf16=compute,
+                                  mode=fused_sample.K4_VEC8)
+    want = triplane.triplane_features_packed(pp, pl, sizes, xyz,
+                                             compute_bf16=compute)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+    assert torch.equal(fused_sample._launch_k4(
+        "k4", pp, pl, sizes, xyz, compute_bf16=compute,
+        mode=fused_sample.K4_FLOAT4), want)
+    for bad in (dict(pp=[pp[0], _misaligned_bf16(pp[1], 4), pp[2]]),
+                dict(pp=[p.float() for p in pp], pl=[l.float() for l in pl])):
+        with pytest.raises(ValueError, match="channels a lane"):
+            fused_sample._launch_k4("k4", bad.get("pp", pp),
+                                    bad.get("pl", pl), sizes, xyz,
+                                    mode=fused_sample.K4_VEC8)
+    p12, l12, s12 = _bf16_packed(*_tables(dev, g, (12, 8, 8), grid))
+    with pytest.raises(ValueError, match="channels a lane"):
+        fused_sample._launch_k4("k4", p12, l12, s12, xyz,
+                                mode=fused_sample.K4_VEC8)
 
 
 @pytest.mark.parametrize("comps,grid,n,stream,mode", [

@@ -144,6 +144,48 @@ def test_k4_wrapper_chooses_its_form(comps, shift, want):
     assert fused_sample._k4_mode(comps, (*pp, *pl)) == want
 
 
+def _bf16_off_boundary(t, nbytes):
+    """A contiguous bf16 copy of ``t`` that starts ``nbytes`` past a
+    16-byte boundary."""
+    base = torch.empty(t.numel() + 16, dtype=torch.bfloat16)
+    start = next(i for i in range(16)
+                 if (base.data_ptr() + 2 * i) % 16 == nbytes)
+    out = base[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("comps,shift,want", [
+    ((64, 16, 16), None, fused_sample.K4_VEC8),
+    ((8, 8, 16), None, fused_sample.K4_VEC8),
+    ((8, 4, 4), None, fused_sample.K4_FLOAT4),
+    ((132, 4, 24), None, fused_sample.K4_FLOAT4),
+    ((6, 3, 5), None, fused_sample.K4_SCALAR),
+    ((64, 16, 16), ("plane", 8), fused_sample.K4_FLOAT4),
+    ((64, 16, 16), ("line", 8), fused_sample.K4_FLOAT4),
+    ((64, 16, 16), ("plane", 2), fused_sample.K4_SCALAR),
+    ((8, 4, 4), ("line", 4), fused_sample.K4_SCALAR)])
+def test_k4_wrapper_chooses_its_bf16_form(comps, shift, want):
+    """Over bf16 tables the vector kernel on eight channels a lane wants
+    every component count a multiple of 8 and every table on a 16-byte
+    boundary; else four channels a lane want multiples of 4 and an 8-byte
+    boundary; else the scalar kernel."""
+    rng = np.random.default_rng(6)
+    planes, lines = _grids(rng, comps)
+    pp, pl, _ = ttp.pack_grids(
+        [torch.from_numpy(p).to(torch.bfloat16) for p in planes],
+        [torch.from_numpy(l).to(torch.bfloat16) for l in lines])
+    pp, pl = [_bf16_off_boundary(t, 0) for t in pp], \
+        [_bf16_off_boundary(t, 0) for t in pl]
+    if shift is not None:
+        which, nbytes = shift
+        if which == "plane":
+            pp[1] = _bf16_off_boundary(pp[1], nbytes)
+        else:
+            pl[2] = _bf16_off_boundary(pl[2], nbytes)
+    assert fused_sample._k4_mode(comps, (*pp, *pl)) == want
+
+
 @pytest.mark.parametrize("comps", [(8, 4, 4), (6, 3, 5)])
 def test_k4_twin_on_texel_boundaries_and_outside(comps):
     """K4's plain twin, through the wrapper on CPU tensors, at points
@@ -260,22 +302,45 @@ def _line_idx(rng, D, n, stream):
     return idx
 
 
-@pytest.mark.parametrize("D,W,n,stream", [
+_K6_CASES = [
     pytest.param(11, 8, 3000, "uniform", id="11-8-3000"),
     pytest.param(366, 32, 2500, "uniform", id="366-32-2500"),
     (366, 128, 5000, "runs"), (50, 16, 3000, "outside"),
     (13, 6, 2000, "uniform"),       # W no multiple of 4
-    (2000, 32, 3000, "runs")])      # D x W above a 227 KB tile
-def test_line_grad_matches_pallas_k6(D, W, n, stream):
+    (2000, 32, 3000, "runs")]       # D x W above a 227 KB tile
+
+
+def _line_grad_both(D, W, n, stream, precision):
     rng = np.random.default_rng(D)
     idx = _line_idx(rng, D, n, stream)
     g = rng.normal(size=(n, W)).astype(np.float32)
     want = np.asarray(jlm.line_grad_matmul(jnp.asarray(idx), jnp.asarray(g),
-                                           D, interpret=True))
+                                           D, precision=precision,
+                                           interpret=True))
     got = line_matmul.line_grad(torch.from_numpy(idx), torch.from_numpy(g),
-                                D).numpy()
+                                D, precision).numpy()
+    exact = line_matmul.line_grad_plain(torch.from_numpy(idx),
+                                        torch.from_numpy(g), D).numpy()
+    return got, want, exact
+
+
+@pytest.mark.parametrize("D,W,n,stream", _K6_CASES)
+def test_line_grad_matches_pallas_k6(D, W, n, stream):
+    got, want, _ = _line_grad_both(D, W, n, stream, "highest")
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-6 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("D,W,n,stream", _K6_CASES)
+def test_line_grad_default_precision_matches_pallas_k6(D, W, n, stream):
+    """``precision="default"``: both sides round g to bf16 and sum the
+    rounded values in f32, so they differ by f32 summation order only,
+    within the same 1e-6 of the largest sum as "highest"; and the rounding
+    shows (the sums are not the exact f32 ones)."""
+    got, want, exact = _line_grad_both(D, W, n, stream, "default")
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * float(np.abs(want).max()))
+    assert np.abs(got - exact).max() > 1e-4 * np.abs(exact).max()
 
 
 @pytest.mark.parametrize("Ds,Ws,n,stream", [

@@ -31,7 +31,11 @@ packed row once (what an unbounded cache would leave) and every point's
 plane rows (what no cache at all would cost), each with xyz read and the
 [N, 96] output written once. ``--k4-unpacked`` times the same cases
 through ``triplane_features_unpacked``, K4's float4 kernel over texel-major
-unpacked tables, a quarter of the packed planes' size.
+unpacked tables, a quarter of the packed planes' size. ``--k4-bf16``
+times the same cases over bf16 tables, in the bf16-row form (f32 output)
+and the bf16 eval chain's form (bf16 output), each in K4's two vector
+kernels: four channels a lane on 8-byte loads and eight on 16-byte loads,
+with whether the two agree bitwise.
 ``chip_smoke.py`` takes its K4, K5 and K6 inputs and times from here.
 
 Another version is another directory: an earlier commit unpacked with
@@ -45,6 +49,7 @@ Usage (needs one CUDA card and nvcc), from the root of a checkout:
     python tools/bench_kernel_variants_torch.py --checkout build/parent
     python tools/bench_kernel_variants_torch.py --kernels k5,k6
     python tools/bench_kernel_variants_torch.py --kernels k4 --k4-unpacked
+    python tools/bench_kernel_variants_torch.py --kernels k4 --k4-bf16
 """
 
 import argparse
@@ -214,6 +219,32 @@ def time_k4(timing, packed, xyz, unpacked=None):
                     call, (K4_KERNEL,))[K4_KERNEL])
 
 
+def time_k4_bf16(timing, packed, xyz, compute_bf16):
+    """K4 over bf16 tables (``packed``) in its two vector kernels, four
+    channels a lane (``vec4``, 8-byte loads) and eight (``vec8``, 16-byte
+    loads): each one's back-to-back ms and kernel device ms, and whether
+    their outputs are bitwise equal."""
+    import torch
+
+    from evdeblurnerf_torch.ops import fused_sample
+
+    times, outs = {}, []
+    for label, mode in (("vec4", fused_sample.K4_FLOAT4),
+                        ("vec8", fused_sample.K4_VEC8)):
+        def call(mode=mode):
+            return fused_sample._launch_k4(
+                "triplane_features", *packed, xyz,
+                compute_bf16=compute_bf16, mode=mode)
+
+        outs.append(call())
+        times[label] = dict(
+            ms=timing.cuda_ms(call, iters=10, warmup=2),
+            device_ms=timing.device_ms_by_name(
+                call, (K4_KERNEL,))[K4_KERNEL])
+    times["bitwise"] = bool(torch.equal(*outs))
+    return times
+
+
 def k6_inputs(dev, g, case):
     """(idx [N] int32, rows [N, 2C], D) of one ``K6_CASES`` entry: uniform
     row indices, or the packed line rows that the ray-ordered points
@@ -282,6 +313,9 @@ def main(argv=None):
                     "(default: k7,k1)")
     ap.add_argument("--k4-unpacked", action="store_true",
                     help="time K4 over texel-major unpacked tables as well")
+    ap.add_argument("--k4-bf16", action="store_true",
+                    help="time K4 over bf16 tables as well, four and eight "
+                    "channels a lane")
     ap.add_argument("--skip-k7", action="store_true",
                     help="leave K7 out of the choice")
     opts = ap.parse_args(argv)
@@ -328,7 +362,7 @@ def main(argv=None):
 
     g = torch.Generator(device=dev).manual_seed(0)
     for case in K4_CASES if "k4" in chosen else ():
-        from evdeblurnerf_torch.ops import fused_sample
+        from evdeblurnerf_torch.ops import fused_sample, triplane
 
         planes, lines, packed, xyz = k4_inputs(dev, g, case)
         t = time_k4(timing, packed, xyz)
@@ -345,6 +379,19 @@ def main(argv=None):
             line += (f"; unpacked tables: back to back {u['ms']:.4f} ms, "
                      f"kernel device {u['device_ms']:.4f} ms")
         print(line, flush=True)
+        if opts.k4_bf16:
+            packed = triplane.pack_grids(
+                [p.to(torch.bfloat16) for p in planes],
+                [ln.to(torch.bfloat16) for ln in lines])
+            for compute in (False, True):
+                t = time_k4_bf16(timing, packed, xyz, compute)
+                print(f"K4 bf16 {'chain' if compute else 'rows'} {case}: "
+                      + "; ".join(
+                          f"{k} back to back {t[k]['ms']:.4f} ms, kernel "
+                          f"device {t[k]['device_ms']:.4f} ms"
+                          for k in ("vec4", "vec8"))
+                      + f"; bitwise equal: {t['bitwise']}", flush=True)
+            del packed
         del planes, lines, xyz
         torch.cuda.empty_cache()
     for case in K5_CASES if "k5" in chosen else ():
