@@ -205,8 +205,8 @@ def loop_timings(tloop):
             return out
         return wrapper
 
-    def build_train_step(args):
-        step = timed(saved["build_train_step"](args), "step_call_s")
+    def build_train_step(args, **kw):
+        step = timed(saved["build_train_step"](args, **kw), "step_call_s")
 
         def marked(*a, **kw):
             out = step(*a, **kw)

@@ -59,7 +59,11 @@ kernel and case, phase 8 a few):
    by kernel name) stands beside the wrapper's ``ms``, the bound at that
    shape and, for K6, ``index_add_``'s time
    (``tools/bench_kernel_variants_torch.py`` holds K4's, K5's and K6's
-   cases and timers);
+   cases and timers); and K4 (bitwise) and K5 (1e-5), each over f32 and
+   over bf16 rows, on one rank's component slice of the fine tables under
+   tensor parallelism, (32, 8, 8) at 2 ranks and (16, 4, 4) at 4, at the
+   step's fine launch (cases ``tp2_step_fine``, ``tp4_step_fine``, with
+   the form each takes);
 4. the serving path at the paper width (the model of ``bench.py``: 64+64
    samples, 16.8M/134M-voxel grids, app_n_comp (64, 16, 16), fine width
    256): seeded random weights saved as a reference ``*.tar``, loaded
@@ -167,7 +171,24 @@ kernel and case, phase 8 a few):
     same rays (at most 1% of rays beyond 1e-5, the rest printed), one
     480x640 pose through the artifact and the live renderer in turns
     (eval rays/s), the file's size, load and first-call seconds, and the
-    line of ``tools/bench_serving_torch.py``.
+    line of ``tools/bench_serving_torch.py``;
+16. the parallel paths (``evdeblurnerf_torch/parallel``): (a)
+    ``cli.main`` at phase 8's settings for 8 steps, twice plainly and
+    once as rank 0 of a world of 1 under torchrun's variables, which joins
+    NCCL, its losses within four times what the two plain runs differ by
+    (K5's atomics), at least phase 7's loss bound; (b) data
+    parallelism 2 x 1 and (c) tensor parallelism 1 x 2 (K4/K5 on (32, 8,
+    8) slices), each two processes of ``tools/parallel_check_torch.py`` on
+    this one card over gloo (NCCL refuses two ranks on one device), the
+    paper step on the bench's global batch from phase 6's weights against
+    the one-process step at phase 7's limits, every training kernel
+    launched on every rank, ms/step and peak memory a rank (two ranks
+    share one card: no scaling figure); (e) the checkpoint the TP ranks
+    gathered, loaded in one process, renders what the TP model rendered
+    (at most 1% of rays beyond 1e-5); (d) one 480x640 pose rendered
+    data-parallel over 2 ranks against phase 4's render (the same bound).
+    ``launches_parallel`` of every kernel is its count over the ranks of
+    (b) and (c)'s compared steps.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -527,16 +548,34 @@ def phase_kernels(dev):
     ms, plain_ms = ab_ms(
         lambda: lane_shuffle.cdf_take_plain(cdf, bins, below, above),
         lambda: lane_shuffle.cdf_take(cdf, bins, below, above))
+    # the library call: one torch.gather of the stacked (cdf, bins) by the
+    # stacked (below, above), [2, 2, R, N]; the two stacks it needs are
+    # timed apart (stack_ms)
+    def stacks():
+        return (torch.stack((cdf, bins))[:, None].expand(2, 2, R, M),
+                torch.stack((below, above)).long()[None].expand(2, 2, R, N))
+
+    src, idx = stacks()
+    lib = torch.gather(src, -1, idx)
+    check(all(torch.equal(lib[i, j], refs[2 * i + j]) for i in range(2)
+              for j in range(2)), "K3's library call differs from its plain "
+          "version")
     results["cdf_take"] = _kernel_entry(
         "lane_shuffle.cu", "evdeblurnerf_tpu/ops/lane_shuffle.py:259",
         max(float((a - b).abs().max()) for a, b in zip(outs, refs)), ms,
         plain_ms,
         # cdf and bins [R, M], two indices and four outputs [R, N]
-        4 * R * (2 * M + 6 * N))
+        4 * R * (2 * M + 6 * N),
+        library_ms=cuda_ms(lambda: torch.gather(src, -1, idx)),
+        library_is="torch.gather of torch.stack((cdf, bins)) by "
+        "torch.stack((below, above)), the stacks made beforehand",
+        stack_ms=cuda_ms(stacks))
     small_kernel_times(
         results["cdf_take"],
         kernel=lambda: lane_shuffle.cdf_take(cdf, bins, below, above),
-        plain=lambda: lane_shuffle.cdf_take_plain(cdf, bins, below, above))
+        plain=lambda: lane_shuffle.cdf_take_plain(cdf, bins, below, above),
+        library=lambda: torch.gather(src, -1, idx))
+    del src, idx, lib
 
     # K4 forward and K5 backward (with K6 for the line tables) at the cases
     # of tools/bench_kernel_variants_torch.py: 2,097,152 uniform points on
@@ -1033,7 +1072,9 @@ def phase_serving(dev, card):
           f"peak {peak_gib:.2f} GiB; launches {launches}; depth "
           f"[{float(depths.min()):.4f}, {float(depths.max()):.4f}]")
     return renderer, loaded, launches, dict(rays_per_s=rate, seconds=secs,
-                                            peak_gib=peak_gib)
+                                            peak_gib=peak_gib,
+                                            rgbs=rgbs.cpu(),
+                                            depths=depths.cpu())
 
 
 def phase_card_vs_cpu(dev, renderer, sd):
@@ -2550,6 +2591,407 @@ def phase_export(dev, card, sd):
                           rates=rates, bench=bench_line)
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (tensor-parallel widths) and phase 16: the parallel paths
+# ---------------------------------------------------------------------------
+# K4 and K5 on one rank's component slice of the paper's fine tables at
+# the step's fine launch: k ranks a ray shard hold (64, 16, 16) / k
+TP_WIDTHS = (2, 4)
+TP_CASE = "step_fine"
+PAR_RANKS = 2           # (b)-(e): two ranks on one card, over gloo
+PAR_TIME_STEPS = 3      # (b), (c): steps a rank times after the compared one
+PAR_RENDER_RAYS = 4096  # (e): rays rendered by the TP model and by one process
+PAR_CLI_STEPS = 8       # (a): steps of each cli.main run
+PAR_CLI_GATES = dict(kernel_start_iter=2, add_event_egm_startiter=4,
+                     tone_mapping_start_learn_iter=6)
+PAR_RAY_TOL = 1e-5      # (d), (e): per-ray |diff| on rgb and depth
+PAR_RAY_MAX_SHARE = 0.01
+
+
+def _tp_width_kernels(dev, g, bench, timing):
+    """Phase 3, tensor-parallel widths: K4 (f32 and bf16 rows) bitwise and
+    K5 (f32 and bf16 rows) within 1e-5 against their twins on a rank's
+    slice of the fine tables, (32, 8, 8) at k = 2 and (16, 4, 4) at k = 4,
+    with the form each takes, its times and bound. Returns {kernel name:
+    {case: record}}."""
+    import torch
+
+    from evdeblurnerf_torch.ops import fused_sample, triplane
+
+    planes0, lines0, packed0, xyz, cot0 = bench.k5_inputs(dev, g, TP_CASE)
+    del packed0
+    n = xyz.shape[0]
+    out = {}
+    for k in TP_WIDTHS:
+        planes = [p[:p.shape[0] // k].contiguous() for p in planes0]
+        lines = [ln[:ln.shape[0] // k].contiguous() for ln in lines0]
+        Cs = [p.shape[0] for p in planes]
+        Ds = [ln.shape[1] for ln in lines]
+        n_ch = sum(Cs)
+        cot = cot0[:, :n_ch].contiguous()
+        touched = (sum(_touched_bytes(p, n, 4) for p in planes)
+                   + sum(_touched_bytes(ln, n, 2) for ln in lines))
+        grads_bytes = 4 * (sum(p.numel() for p in planes)
+                           + sum(ln.numel() for ln in lines) + 3 * n)
+        case = f"tp{k}_{TP_CASE}"
+        for bf16 in (False, True):
+            packed = (_bf16_packed(planes, lines) if bf16
+                      else triplane.pack_grids(planes, lines))
+            wide = (*packed[0], *packed[1])
+            # K4: xyz, the touched cells and the output
+            k4_bytes = (4 * n * (3 + n_ch)
+                        + (touched // 2 if bf16 else touched))
+
+            def k4():
+                return fused_sample.triplane_features(*packed, xyz)
+
+            def k4_plain():
+                return triplane.triplane_features_packed(*packed, xyz)
+
+            got, want = k4(), k4_plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want), f"K4 {case} (bf16 rows {bf16}, "
+                  f"C {Cs}): differs from its plain version by {err:.3e}")
+            mode = fused_sample._k4_mode(Cs, (*wide, got))
+            del got, want
+            rec = _timed(bench.time_k4, timing, packed, xyz)
+            rec.update(tables=f"fine, components {Cs}", points=n,
+                       stream="uniform", max_abs_err=err,
+                       form={fused_sample.K4_SCALAR: "scalar",
+                             fused_sample.K4_FLOAT4: "float4",
+                             fused_sample.K4_VEC8: "vec8"}[mode],
+                       plain_ms=cuda_ms(k4_plain, 3, 1), bytes=k4_bytes,
+                       bound_ms=1e3 * k4_bytes / HBM_BYTES_PER_S)
+            name = ("triplane_features_bf16" if bf16
+                    else "triplane_features")
+            out.setdefault(name, {})[case] = rec
+            # K5: xyz, the touched cells and the cotangent read, the
+            # gradients written
+            k5_bytes = 4 * n * (3 + n_ch) + (touched // 2 if bf16
+                                             else touched) + grads_bytes
+            got = fused_sample.triplane_features_bwd(planes, lines, packed,
+                                                     xyz, cot)
+            got = [*got[0], *got[1], got[2]]
+            leaves = [t.clone().requires_grad_()
+                      for t in (*planes, *lines, xyz)]
+            pk = triplane.pack_grids(leaves[:3], leaves[3:6])
+            if bf16:
+                pk = ([triplane.round_bf16(t) for t in pk[0]],
+                      [triplane.round_bf16(t) for t in pk[1]], pk[2])
+            feats = triplane.triplane_features_packed(*pk, leaves[6])
+            want = torch.autograd.grad(feats, leaves, cot, retain_graph=True)
+            rel = 0.0
+            for gname, a, b in zip(("plane0", "plane1", "plane2", "line0",
+                                    "line1", "line2", "xyz"), got, want):
+                e = float((a - b).abs().max())
+                scale = float(b.abs().max())
+                check(e <= GRAD_REL_TOL * scale,
+                      f"K5 {case} (bf16 rows {bf16}) d_{gname}: max |kernel "
+                      f"- plain| {e:.3e} exceeds {GRAD_REL_TOL} x "
+                      f"{scale:.3e}")
+                rel = max(rel, e / scale)
+            mode = fused_sample._k5_mode(Cs, Ds, (*wide, cot), dev)
+            del got, want
+            rec = _timed(bench.time_k5, timing, planes, lines, packed, xyz,
+                         cot)
+            rec.update(tables=f"fine, components {Cs}", points=n,
+                       stream="uniform", max_rel_err=rel,
+                       form={fused_sample.K5_SCALAR: "scalar",
+                             fused_sample.K5_FLOAT4: "float4",
+                             fused_sample.K5_FUSED: "fused"}[mode],
+                       plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                           feats, leaves, cot, retain_graph=True), 3, 1),
+                       bytes=k5_bytes,
+                       bound_ms=1e3 * k5_bytes / HBM_BYTES_PER_S)
+            name = ("triplane_features_bwd_bf16" if bf16
+                    else "triplane_features_bwd")
+            out.setdefault(name, {})[case] = rec
+            del feats, leaves, pk, packed, wide
+            torch.cuda.empty_cache()
+        del planes, lines, cot
+    del planes0, lines0, xyz, cot0
+    torch.cuda.empty_cache()
+    for name, cases in out.items():
+        for case, c in cases.items():
+            err = (f"max rel err {c['max_rel_err']:.2e}" if "max_rel_err" in c
+                   else "bitwise equal to the plain version")
+            print(f"[3 kernel] {name} {case}: {c['points']} uniform points, "
+                  f"{c['tables']}, {c['form']} form: kernel device "
+                  f"{c['device_ms']:.4f} ms, back to back {c['ms']:.4f} ms, "
+                  f"plain {c['plain_ms']:.4f} ms; library call none; bound "
+                  f"{c['bound_ms']:.4f} ms ({c['bytes']} bytes); {err}")
+    return out
+
+
+def _numpy_batch(batch):
+    return None if batch is None else {k: v.cpu().numpy()
+                                      for k, v in batch.items()}
+
+
+def _par_step_check(label, got, want):
+    """(b), (c): a parallel step against the one-process step at phase 7's
+    card-vs-CPU limits; returns (loss rel, share beyond, the parameters
+    of the largest max |diff| / max |one process|)."""
+    check(set(got["grads"]) == set(want["grads"]),
+          f"{label}: the ranks and one process differ in which parameters "
+          "have a gradient")
+    rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    total = beyond = 0
+    rel = {}
+    for n, b in want["grads"].items():
+        a = got["grads"][n]
+        scale = float(b.abs().max()) or 1.0
+        rel[n] = float((a - b).abs().max()) / scale
+        total += b.numel()
+        beyond += int(((a - b).abs() > TRAIN_GRAD_TOL * scale).sum())
+    share = beyond / total
+    check(rel_loss <= TRAIN_LOSS_TOL,
+          f"{label}: loss differs by {rel_loss:.2e} relative")
+    check(share <= TRAIN_GRAD_MAX_SHARE,
+          f"{label}: {share:.2e} of gradient elements beyond "
+          f"{TRAIN_GRAD_TOL}")
+    return rel_loss, share, sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+
+
+def _ray_share(rgb_a, depth_a, rgb_b, depth_b):
+    """(largest per-ray |diff| over rgb and depth, share beyond
+    PAR_RAY_TOL)."""
+    import torch
+
+    d = torch.maximum((rgb_a - rgb_b).abs().reshape(-1, 3).max(-1)[0],
+                      (depth_a - depth_b).abs().reshape(-1))
+    return float(d.max()), float((d > PAR_RAY_TOL).float().mean())
+
+
+def _par_launches(label, records):
+    """Each rank's launches of the compared step; every training kernel
+    must have run on every rank."""
+    from evdeblurnerf_torch import kernels
+
+    for r in records:
+        check(not r["jax_modules"], f"{label}: rank {r['rank']} loaded "
+              f"{r['jax_modules']}")
+        for name in kernels.TRAIN_KERNELS:
+            check(r["launches"][name] > 0, f"{label}: kernel {name} never "
+                  f"launched on rank {r['rank']}")
+    return {name: sum(r["launches"][name] for r in records)
+            for name in kernels.KERNELS}
+
+
+def _par_cli(dev, tmp):
+    """Phase 16 (a): cli.main at phase 8's settings (the paper config on
+    the synthetic scene) twice plainly in this process and once as rank 0
+    of a world of 1 under torchrun's variables, which joins NCCL; the
+    NCCL run's logged losses must lie within what plain runs differ by:
+    K5's atomics let each run drift by ~1e-5 relative over these steps, of
+    which the two plain runs give one sample, so the largest relative
+    difference from the first plain run is held to four times theirs, and
+    at least to phase 7's loss bound."""
+    from evdeblurnerf_torch import cli
+
+    synth = _load_tool("synthetic_scene_torch")
+    llff_cls, events_cls = synth.scene_classes()
+    scene = os.path.join(tmp, "scene")
+    os.makedirs(scene)
+    synth.write_scene(scene, train_args().events_threshold, SEED)
+    logs = os.path.join(tmp, "logs")
+
+    def argv(expname):
+        merged = dict(datadir=scene, basedir=logs, tbdir=logs,
+                      expname=expname, no_wandb=True, i_video=10 ** 9,
+                      device=dev.type, N_iters=PAR_CLI_STEPS,
+                      i_print=10 ** 9,
+                      i_tensorboard=1, i_weights=10 ** 9, i_testset=10 ** 9,
+                      **PAR_CLI_GATES)
+        out = ["--config", os.path.join(REPO, _bench_torch().PAPER_CONFIG)]
+        for k, v in merged.items():
+            out += [f"--{k}", str(v)]
+        return out
+
+    for name in ("plain_a", "plain_b"):
+        cli.main(argv(name), llff_cls=llff_cls, events_cls=events_cls)
+    code = (
+        "import importlib.util, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "spec = importlib.util.spec_from_file_location('s', "
+        f"{os.path.join(REPO, 'tools', 'synthetic_scene_torch.py')!r})\n"
+        "s = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(s)\n"
+        "import torch.distributed as dist\n"
+        "from evdeblurnerf_torch import cli\n"
+        "from evdeblurnerf_torch.parallel import multihost\n"
+        f"multihost.initialize(device={dev.type!r})\n"
+        "print('backend', dist.get_backend(), 'world',"
+        " dist.get_world_size(), flush=True)\n"
+        "llff, ev = s.scene_classes()\n"
+        "cli.main(sys.argv[1:], llff_cls=llff, events_cls=ev)\n")
+    pc = _load_tool("parallel_check_torch")
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(pc.free_port())}
+    proc = subprocess.run([sys.executable, "-c", code, *argv("nccl")],
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    check(proc.returncode == 0, "the NCCL world-1 run failed:\n"
+          + (proc.stdout + proc.stderr)[-3000:])
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(f"backend {backend} world 1" in proc.stdout,
+          f"the world-1 run did not join {backend}: {proc.stdout[:500]}")
+    runs = {}
+    for name in ("plain_a", "plain_b", "nccl"):
+        stream, _ = _metric_stream(os.path.join(logs, name, "metrics.jsonl"))
+        runs[name] = dict(stream["train/loss"])
+    steps = sorted(runs["plain_a"])
+    check(steps == list(range(PAR_CLI_STEPS)) and all(
+        sorted(runs[n]) == steps for n in runs),
+        f"logged steps {[sorted(r) for r in runs.values()]}")
+
+    def rel(a, b):
+        return max(abs(runs[a][s] - runs[b][s]) / abs(runs[b][s])
+                   for s in steps)
+
+    spread, nccl = rel("plain_b", "plain_a"), rel("nccl", "plain_a")
+    bound = max(4 * spread, TRAIN_LOSS_TOL)
+    print(f"[16 parallel] (a) cli.main, {PAR_CLI_STEPS} steps of "
+          f"{_bench_torch().PAPER_CONFIG} across {PAR_CLI_GATES}: NCCL world "
+          f"1 vs plain, largest relative loss difference {nccl:.3e}; two "
+          f"plain runs {spread:.3e}; losses plain "
+          f"{[round(runs['plain_a'][s], 6) for s in steps]}, NCCL "
+          f"{[round(runs['nccl'][s], 6) for s in steps]}")
+    check(nccl <= bound, f"the NCCL world-1 run's losses differ from the "
+          f"plain run's by {nccl:.3e}, beyond {bound:.3e}")
+    return dict(nccl_rel=nccl, plain_spread=spread)
+
+
+def phase_parallel(dev, card, sd, crf_sd, sd_serve, serve):
+    """Phase 16 (module docstring): returns the parallel steps' launches
+    (summed over the ranks of (b) and (c)) and the figures."""
+    import torch
+
+    from evdeblurnerf_torch.models.renderer import config_from_args
+    from evdeblurnerf_torch.models.system import kernel_config_from_args
+    from evdeblurnerf_torch.models.tonemapping import CRF
+    from evdeblurnerf_torch.parallel import mesh
+    from evdeblurnerf_torch.train import step as tstep
+    from evdeblurnerf_torch.train.checkpoint import load_into_state
+
+    pc = _load_tool("parallel_check_torch")
+    note = "two ranks share one card: no scaling figure"
+    with tempfile.TemporaryDirectory() as tmp:
+        figures = dict(cli=_par_cli(dev, tmp))
+        torch.cuda.empty_cache()
+
+        args = train_args()
+        batch, ev_batch = make_train_batch("cpu", args.N_rand,
+                                           args.events_N_rand)
+        n_rays = (args.N_rand * args.kernel_ptnum + 2 * args.events_N_rand)
+        setup = dict(cfg=config_from_args(args, AABB, H, W, FOCAL, NEAR, FAR),
+                     kcfg=kernel_config_from_args(args),
+                     num_images=NUM_IMAGES, args=args, seed=SEED,
+                     model_sd=sd, crf_sd=crf_sd,
+                     batch=_numpy_batch(batch), ev_batch=_numpy_batch(ev_batch),
+                     sw=tstep.schedule_weights_fn(args)(1), force_naive=False,
+                     events_active=True, time_steps=PAR_TIME_STEPS)
+        runs = {}
+        for label, tp, extra in (
+                ("(b) DP 2x1", 1, {}),
+                ("(c) TP 1x2", 2, dict(
+                    checkpoint=os.path.join(tmp, "tp.tar"),
+                    render_rays=PAR_RENDER_RAYS))):
+            path = os.path.join(tmp, f"setup_tp{tp}.pt")
+            torch.save(dict(setup, **extra), path)
+            t0 = time.perf_counter()
+            got, records = pc.spawn(path, os.path.join(tmp, f"out{tp}.pt"),
+                                    PAR_RANKS, tp=tp, device=str(dev),
+                                    backend="gloo", timeout=900)
+            runs[label] = (got, records, time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        want, _ = pc.run(setup, dev, mesh.Layout())
+        torch.cuda.empty_cache()
+        launches = dict.fromkeys(runs["(b) DP 2x1"][1][0]["launches"], 0)
+        for label, (got, records, secs) in runs.items():
+            rel_loss, share, worst = _par_step_check(label, got, want)
+            per_rank = _par_launches(label, records)
+            for name, v in per_rank.items():
+                launches[name] += v
+            figures[label] = dict(rel_loss=rel_loss, share_beyond=share,
+                                  ms_per_step=[r["ms_per_step"]
+                                               for r in records],
+                                  peak_gib=[r.get("peak_gib", 0.0) for r in records])
+            print(f"[16 parallel] {label} over gloo on {card}, "
+                  f"{PAR_RANKS} processes on {dev}, the paper step on the "
+                  f"global batch of {n_rays} rays from phase 6's weights: "
+                  f"loss {got['loss']:.7g} vs one process {want['loss']:.7g} "
+                  f"(rel {rel_loss:.2e}); max |diff| / max|one process| "
+                  f"largest at {', '.join(f'{n} {v:.2e}' for n, v in worst)}"
+                  f", share of gradient elements beyond "
+                  f"{TRAIN_GRAD_TOL} x max: {share:.2e}; per rank "
+                  f"ms/step {[round(r['ms_per_step'], 1) for r in records]}, "
+                  f"peak GiB {[round(r.get('peak_gib', 0.0), 2) for r in records]} "
+                  f"({note}); launches a rank "
+                  f"{[{k: v for k, v in r['launches'].items() if v} for r in records]}; "
+                  f"ranks' wall {secs:.1f} s")
+
+        # (e) the TP checkpoint in one process
+        got_tp = runs["(c) TP 1x2"][0]
+        one = pc.build_state({k: v for k, v in setup.items()
+                              if k not in ("model_sd", "crf_sd")}, dev)
+        load_into_state(torch.load(os.path.join(tmp, "tp.tar"),
+                                   map_location="cpu", weights_only=True),
+                        one)
+        check(one.step == 1, f"the TP checkpoint is at step {one.step}")
+        plane = one.model.mlp_fine.app_plane[0]
+        check(one.optimizer.state[plane]["exp_avg"].shape == plane.shape,
+              "the TP checkpoint's Adam moments are not whole")
+        one.model.eval()
+        rays = torch.as_tensor(setup["batch"]["rays"][:PAR_RENDER_RAYS]) \
+            .to(dev)
+        with torch.inference_mode():
+            rgb, depth, _ = one.model.render_chunk(rays)
+        worst, share = _ray_share(rgb.cpu(), depth.cpu(),
+                                  got_tp["render_rgb"], got_tp["render_depth"])
+        del one, rgb, depth
+        torch.cuda.empty_cache()
+        figures["(e)"] = dict(max_abs_diff=worst, share_beyond=share)
+        print(f"[16 parallel] (e) the TP run's gathered checkpoint loaded in "
+              f"one process renders {PAR_RENDER_RAYS} of the batch's rays: "
+              f"max |diff| {worst:.3e} against the TP model's render, share "
+              f"beyond {PAR_RAY_TOL}: {share:.4f}")
+        check(share <= PAR_RAY_MAX_SHARE, f"(e): {share:.4f} of rays differ "
+              f"by more than {PAR_RAY_TOL}")
+
+        # (d) one pose, data-parallel, against phase 4's render
+        sargs = argparse.Namespace(**SERVE_FLAGS)
+        K = [[FOCAL, 0.0, W / 2], [0.0, FOCAL, H / 2], [0.0, 0.0, 1.0]]
+        path = os.path.join(tmp, "setup_render.pt")
+        torch.save(dict(cfg=config_from_args(sargs, AABB, H, W, FOCAL, NEAR,
+                                             FAR), model_sd=sd_serve,
+                        render=dict(poses=make_poses()[:1], H=H, W=W, K=K,
+                                    chunk=CHUNK)), path)
+        got, records = pc.spawn(path, os.path.join(tmp, "out_render.pt"),
+                                PAR_RANKS, device=str(dev), backend="gloo",
+                                timeout=900)
+        rgb = CRF(sargs.tone_mapping_type, sargs.tone_mapping_gamma)(
+            got["rgb"])
+        worst, share = _ray_share(rgb, got["depth"], serve["rgbs"],
+                                  serve["depths"])
+        for r in records:
+            for name in SERVE_KERNELS:
+                check(r["launches"][name] > 0, f"(d): kernel {name} never "
+                      f"launched on rank {r['rank']}")
+        figures["(d)"] = dict(max_abs_diff=worst, share_beyond=share,
+                              render_s=[r["render_s"] for r in records])
+        print(f"[16 parallel] (d) one {H}x{W} pose data-parallel over "
+              f"{PAR_RANKS} ranks (chunk {CHUNK} a rank) against phase 4's "
+              f"render: max |diff| {worst:.3e}, share beyond {PAR_RAY_TOL}: "
+              f"{share:.4f}; seconds a rank "
+              f"{[round(r['render_s'], 2) for r in records]} ({note})")
+        check(share <= PAR_RAY_MAX_SHARE, f"(d): {share:.4f} of rays differ "
+              f"by more than {PAR_RAY_TOL}")
+    return launches, figures
+
+
 def main():
     try:
         import torch
@@ -2572,7 +3014,13 @@ def main():
         dev = torch.device("cuda", 0)
         phase_build()
         kernel_results = phase_kernels(dev)
-        renderer, sd_serve, serve_launches, _ = phase_serving(dev, card)
+        tp_cases = _tp_width_kernels(
+            dev, torch.Generator(device=dev).manual_seed(SEED + 16),
+            _load_tool("bench_kernel_variants_torch"),
+            _load_tool("timing_torch"))
+        for name in ("triplane_features", "triplane_features_bwd"):
+            kernel_results[name]["cases"].update(tp_cases.pop(name))
+        renderer, sd_serve, serve_launches, served = phase_serving(dev, card)
         phase_card_vs_cpu(dev, renderer, sd_serve)
         del renderer
         torch.cuda.empty_cache()
@@ -2585,9 +3033,12 @@ def main():
         nerf_launches, _ = phase_nerf(dev, card)
         cull_launches, _ = phase_cull(dev, card, sd, crf_sd)
         bf16_records, _ = phase_bf16(dev, card, sd_serve, sd, crf_sd)
-        del sd, crf_sd
+        for name, cases in tp_cases.items():
+            bf16_records[name]["cases"].update(cases)
         export_launches, _ = phase_export(dev, card, sd_serve)
-        del sd_serve
+        parallel_launches, _ = phase_parallel(dev, card, sd, crf_sd,
+                                              sd_serve, served)
+        del sd, crf_sd, sd_serve, served
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                          "evdeblurnerf_tpu")]
@@ -2612,6 +3063,10 @@ def main():
     # the bf16 forms: launches of phase 14's bf16 step, or of its bf16
     # served pose for the eval chain's form
     kernel_results.update(bf16_records)
+    # the parallel paths: the launches of phase 16's compared steps, (b)
+    # and (c), summed over their ranks
+    for name, r in kernel_results.items():
+        r["launches_parallel"] = parallel_launches.get(name, 0)
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in
                                   kernel_results.items()]}))
     print(json.dumps({"ok": True, "device": {

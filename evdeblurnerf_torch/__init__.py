@@ -7,7 +7,9 @@ the paper's training step (``train.state.create_train_state`` ->
 ``train.step.build_train_step``) and the training run around it
 (``cli.main`` -> ``train.loop.train``: datasets, prefetch, schedules,
 checkpoints, held-out renders with LPIPS, resume, render-only, the
-``torch.profiler`` trace window), in both field families (the c2f PDRF
+``torch.profiler`` trace window; data-parallel, multi-host and over
+tensor-parallel tables through ``parallel/``), the exported serving
+artifact (``serving.py``), in both field families (the c2f PDRF
 voxel fields and the vanilla NeRF MLPs of ``mode=nerf``), with the TPU's
 Pallas kernels written by hand for Hopper (``kernels/``, ``csrc/``): K1
 ``permute_lanes`` and its backward launch, K2 ``permute_lanes_3d``, K3

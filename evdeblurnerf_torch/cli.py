@@ -5,7 +5,10 @@ Counterpart of ``evdeblurnerf_tpu/cli.py``: the reference-compatible flag
 surface and config files (``config.py``), the lifecycle in
 ``train/loop.py``, the serving export in ``serving.py``. A run goes to the
 card unless ``--device cpu`` is given; ``--render_only`` renders from the
-newest checkpoint.
+newest checkpoint. Under ``torchrun`` (``WORLD_SIZE`` in the environment)
+or with ``--multihost`` (the ``EVDN_*`` variables) the process first joins
+the process group (``parallel/multihost.py``), and only the primary
+process prints.
 """
 
 from __future__ import annotations
@@ -18,12 +21,25 @@ def main(argv=None, **dataset_classes):
     returns the final train state. ``dataset_classes`` (``llff_cls``,
     ``events_cls``: subclasses that read a scene stored another way) go
     to ``train.loop.train``."""
+    import sys
+
     from .config import parse_args
+    from .parallel import multihost
     from .train.loop import train
 
     args = parse_args(argv)
+    joined = multihost.wants_process_group(args.multihost)
+    if joined:
+        # before anything touches the card
+        multihost.initialize(device=args.device)
+        if not multihost.is_primary():
+            sys.stdout = open(os.devnull, "w")    # side-effect-free workers
     print("RANDOM SEED", args.seed)
-    return train(args, **dataset_classes)
+    try:
+        return train(args, **dataset_classes)
+    finally:
+        if joined:
+            multihost.shutdown()
 
 
 def export_main(argv=None) -> dict:
@@ -42,8 +58,9 @@ def export_main(argv=None) -> dict:
     ap.add_argument("--export_chunk", type=int, default=32768,
                     help="the fixed rays-per-call chunk of the program")
     ap.add_argument("--export_devices", type=int, default=1,
-                    help="devices to export over, data-parallel; only 1 is "
-                         "ported (more is ROADMAP queue 1 item 22)")
+                    help="export data-parallel over this many devices "
+                         "(rays split; the artifact then needs this many "
+                         "devices at serving time)")
     cli, rest = ap.parse_known_args(argv)
 
     from . import config, serving
@@ -53,7 +70,8 @@ def export_main(argv=None) -> dict:
                                      devices=cli.export_devices)
     print(f"wrote {cli.out} ({os.path.getsize(cli.out) / 1e6:.1f} MB, "
           f"step={meta['step']}, chunk={cli.export_chunk}, "
-          f"device={meta['device']}, tables={meta['tables']}, "
+          f"device={meta['device']}, devices={meta['devices']}, "
+          f"tables={meta['tables']}, "
           f"triplane_bf16={meta['triplane_bf16']})")
     return meta
 

@@ -34,9 +34,10 @@ What differs from the JAX package's table:
   * ``--device`` (``cuda`` by default): the entry points run on the card
     unless the caller asks for ``cpu``.
   * Flags that steer TPU mechanisms (``compilation_cache_dir``,
-    ``matmul_precision``, ``tp_model_parallel``, ``multihost``, ``remat``)
-    stay accepted; :func:`check_supported` raises ``NotImplementedError``
-    for a value that asks for something the port does not do yet.
+    ``matmul_precision``, ``remat``) stay accepted and are ignored;
+    ``tp_model_parallel`` and ``multihost`` drive the parallel paths
+    (``parallel/``), each rank on ``--device`` (``cuda`` is
+    ``cuda:<LOCAL_RANK>``).
 """
 
 from __future__ import annotations
@@ -89,8 +90,8 @@ FLAG_SPEC = [
     _bool("no_wandb"),
     _bool("use_tensorboard"),
     _flag("num_gpu", int, 1),           # kept for config compat
-    # the JAX package's parallel paths; accepted, and check_supported()
-    # raises for tp_model_parallel > 1 and multihost (ROADMAP item 22)
+    # the parallel paths (parallel/): table slices a ray shard, and the
+    # EVDN_* multi-host launch
     _flag("tp_model_parallel", int, 1),
     _bool("multihost"),
     _flag("torch_hub_dir", str, ""),
@@ -343,7 +344,8 @@ FLAG_SPEC = [
           help="trace output dir (default <expdir>/profile)"),
     _flag("device", str, "cuda",
           help="where the model runs: 'cuda' (the default; fails where "
-               "there is no card), 'cuda:N' or 'cpu'"),
+               "there is no card; a rank of a process group takes "
+               "cuda:<LOCAL_RANK>), 'cuda:N' or 'cpu'"),
 
     # Logging / saving
     _flag("i_print", int, 200),
@@ -596,24 +598,17 @@ def default_args(**overrides) -> Args:
 
 
 def check_supported(args: Args) -> None:
-    """Raise ``NotImplementedError`` for a flag value that asks for
-    something the port does not do yet, naming its ROADMAP queue-1 item.
-    Flags that only steer TPU mechanisms (``compilation_cache_dir``,
-    ``matmul_precision``, ``remat``, ``triplane_line_matmul``) are accepted
-    and ignored; ``triplane_bf16`` is ported (bf16 tables)."""
-    def asks(name, default=0):
-        return getattr(args, name, default) or default
-
-    todo = []
-    if asks("tp_model_parallel", 1) > 1:
-        todo.append(("--tp_model_parallel > 1", 22))
-    if getattr(args, "multihost", False):
-        todo.append(("--multihost", 22))
-    if todo:
-        raise NotImplementedError(
-            "not ported to evdeblurnerf_torch yet: " + "; ".join(
-                f"{what} is ROADMAP queue 1 item {item}"
-                for what, item in todo))
+    """Raise for a flag value the port cannot run. Every setting of the
+    JAX package is ported (the parallel paths since ``parallel/``: the
+    combination of ``--tp_model_parallel`` with multi-host training is
+    refused by the loop, which knows the process group, as the JAX loop
+    refuses it). Flags that only steer TPU mechanisms
+    (``compilation_cache_dir``, ``matmul_precision``, ``remat``,
+    ``triplane_line_matmul``) are accepted and ignored."""
+    k = getattr(args, "tp_model_parallel", 1)
+    if k is not None and k < 1:
+        raise ValueError(f"--tp_model_parallel={k}: expected 1 or more "
+                         "ranks a table")
 
 
 def eval_fine_cull(args) -> bool:

@@ -20,7 +20,9 @@ BatchNorm is torch's ``BatchNorm1d(momentum=0.1, eps=1e-5)``, the
 reference's own module: the JAX package's flax ``BatchNorm(momentum=0.9)``
 normalises the same way, but its running variance takes the biased batch
 variance where torch takes the unbiased one (a factor n / (n - 1) on the
-update, n = rays x motions).
+update, n = rays x motions). In a data-parallel step the BatchNorm takes
+the statistics of every rank's rays (``parallel/mesh.py::batch_norm``),
+as flax BatchNorm over a sharded global batch does.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.compositing import CumprodLanes
+from ..parallel import mesh
 from .embedding import positional_encoding, positional_encoding_dim
 from .layers import make_linear
 
@@ -90,7 +93,8 @@ class CorrelationModule(nn.Module):
         x_inter = torch.einsum("bnk,bkm->bnm", x_inter, curver_inter)
         x_intra = torch.einsum("bnl,blm->bnm", x_intra, curves_intra)
         h = _dense(self.convd[0], torch.cat([x_inter, x_intra], -1))
-        h = self.convd[1](h.reshape(-1, h.shape[-1])).reshape(h.shape)
+        h = mesh.batch_norm(self.convd[1],
+                            h.reshape(-1, h.shape[-1])).reshape(h.shape)
         return F.leaky_relu(x + h, negative_slope=0.2)
 
 

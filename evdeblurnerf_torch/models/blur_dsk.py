@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from .embedding import positional_encoding, positional_encoding_dim
 
 
@@ -137,8 +138,8 @@ class DSKBlurModel(nn.Module):
                   else self.pattern_pos[img_idx])
         pt_pos = torch.tanh(pt_pos) * self.kernel_hwindow
         if self.random_hwindow > 0 and is_train:
-            pt_pos = pt_pos + self.random_hwindow * torch.randn(
-                pt_pos.shape, generator=generator, device=pt_pos.device)
+            pt_pos = pt_pos + self.random_hwindow * mesh.draw(
+                torch.randn, pt_pos.shape, generator, pt_pos.device)
         input_pos = pt_pos
         x = []
         if self.in_embed > 0:

@@ -51,6 +51,7 @@ import torch
 from torch import nn
 
 from ..ops import lane_shuffle, occupancy
+from ..parallel import mesh
 from ..ops.sample_pdf import sample_pdf, unit_linspace
 from ..ops import compositing
 from ..utils.rays import get_ndc_rays
@@ -313,15 +314,14 @@ class Renderer(nn.Module):
             mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
             upper = torch.cat([mids, z_vals[..., -1:]], -1)
             lower = torch.cat([z_vals[..., :1], mids], -1)
-            t_rand = torch.rand(z_vals.shape, generator=generator,
-                                device=device)
+            t_rand = mesh.draw(torch.rand, z_vals.shape, generator, device)
             z_vals = lower + (upper - lower) * t_rand
         return z_vals
 
     def _noise(self, shape, noise_std: float, generator):
         if noise_std > 0.0:
-            return torch.randn(shape, generator=generator,
-                               device=self.device) * noise_std
+            return mesh.draw(torch.randn, shape, generator,
+                             self.device) * noise_std
         return None
 
     def _unpack_rays(self, rays: torch.Tensor):

@@ -31,6 +31,13 @@ stays the exact f32 one (K5's bf16 form). Renders that do not train
 double-angle positional encoding; ``eval_f32_interp`` turns the chain off
 (the JAX package's ``EVDN_EVAL_F32_INTERP``), leaving bf16 rows with f32
 math.
+
+Tensor-parallel tables (``parallel/tp.py``, ``--tp_model_parallel``): a
+field whose ``tp`` is set holds a component slice of every grid, samples it
+through the same kernels, projects through its columns of ``basis_mat``
+and sums the partial features over the model group
+(``evdeblurnerf_tpu/models/voxnerf.py:135-158``); its TV is the mean of
+the slices' TVs.
 """
 
 from __future__ import annotations
@@ -78,6 +85,9 @@ class VoxelNeRF(nn.Module):
         self.table_bf16 = table_bf16
         self.eval_f32_interp = eval_f32_interp
         self.tables_frozen = False
+        # this rank's share of the tables under tensor parallelism
+        # (parallel/tp.py::TableSlice), None when they are whole
+        self.tp = None
         self.register_buffer(
             "aabb", torch.tensor(aabb, dtype=torch.float32, device=device),
             persistent=False)
@@ -196,6 +206,8 @@ class VoxelNeRF(nn.Module):
         self.refresh_tables()
         shape = pts.shape[:-1]
         xyz = self.normalize_coords(pts.reshape(-1, 3)).contiguous()
+        if self.tp is not None:
+            xyz = self.tp.points(xyz)
         packed = ([getattr(self, f"packed_plane_{i}") for i in range(3)],
                   [getattr(self, f"packed_line_{i}") for i in range(3)],
                   self.table_sizes)
@@ -205,7 +217,10 @@ class VoxelNeRF(nn.Module):
                 *packed, xyz, compute_bf16=compute).float()
         else:
             feats = fused_sample.sample_grids(*self.grids(), packed, xyz)
-        feats = self.basis_mat(feats)
+        if self.tp is None:
+            feats = self.basis_mat(feats)
+        else:
+            feats = self.tp.contract(feats, self.basis_mat.weight)
         return ACTIVATIONS[self.app_actfn](feats).reshape(*shape,
                                                           self.app_dim)
 
@@ -228,8 +243,10 @@ class VoxelNeRF(nn.Module):
         return h
 
     def tv_loss_app(self) -> torch.Tensor:
-        """(ref: voxnerf.py:126-130)"""
-        return triplane.tv_loss_app(*self.grids())
+        """(ref: voxnerf.py:126-130); over sliced tables the mean of the
+        slices' TVs."""
+        tv = triplane.tv_loss_app(*self.grids())
+        return tv if self.tp is None else self.tp.mean(tv)
 
     def forward(self, pts, viewdirs, fts, z_vals, rays_d, noise=None,
                 is_train=False, perm=None, inv_perm=None,

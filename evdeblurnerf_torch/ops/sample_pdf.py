@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from . import lane_shuffle
+from ..parallel import mesh
 
 
 def unit_linspace(n: int, device=None) -> torch.Tensor:
@@ -62,8 +63,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_samples: int,
     if det:
         u = unit_linspace(N_samples, cdf.device).expand(shape).contiguous()
     else:
-        u = torch.rand(shape, generator=generator, dtype=cdf.dtype,
-                       device=cdf.device)
+        u = mesh.draw(torch.rand, shape, generator, cdf.device, cdf.dtype)
 
     inds = searchsorted_right(cdf, u)
     below = torch.clamp_min(inds - 1, 0).int()

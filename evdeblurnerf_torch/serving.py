@@ -43,6 +43,14 @@ File layout (one file), the JAX package's::
 A bf16 model (``--triplane_bf16``) is exported, like the JAX artifact,
 with its bf16 eval chain baked in. The rgb CRF is folded into the chunk
 output in both ways of serving.
+
+A data-parallel artifact (``--export_devices k``,
+``evdeblurnerf_tpu/serving.py:240-249``) records k: its program renders
+``chunk / k`` rays, and the loader places a replica on each of the first
+k devices of the artifact's type and splits every chunk over them (the
+outputs gathered on the first). Exporting or loading it in a process with
+fewer than k devices raises ``ValueError``, with the JAX package's
+messages.
 """
 
 from __future__ import annotations
@@ -200,6 +208,26 @@ def make_render_fn(model, crf=None, skip_learn_crf: bool = False,
     return RenderProgram(model, crf, skip_learn_crf, fine_cull).eval()
 
 
+def device_count(kind: str) -> int:
+    """The devices of type ``kind`` this process has (one CPU)."""
+    return torch.cuda.device_count() if kind == "cuda" else 1
+
+
+def _check_devices(kind: str, devices: int, chunk: int) -> None:
+    """Refuse an export over more devices than the process has (the JAX
+    package's check) or a chunk that does not divide over them."""
+    if devices > 1:
+        avail = device_count(kind)
+        if avail < devices:
+            raise ValueError(
+                f"export requested {devices} devices but this process has "
+                f"{avail} — the artifact would silently shard differently "
+                "than asked")
+        if chunk % devices:
+            raise ValueError(f"chunk={chunk} must divide over the "
+                             f"{devices}-device mesh")
+
+
 def export_renderer(model, chunk: int = 32768, crf=None,
                     skip_learn_crf: bool = False, meta: Optional[dict] = None,
                     fine_cull: bool = False, devices: int = 1):
@@ -211,18 +239,15 @@ def export_renderer(model, chunk: int = 32768, crf=None,
     model, its eval chain baked in) and MLPs, not the raw grids. ``meta``
     entries (H, W, K, near, far, expname, step) are merged into the header,
     so a loader can make camera rays without a config file.
-    ``devices > 1`` (a data-parallel artifact) raises
-    ``NotImplementedError``: the parallel paths are ROADMAP queue 1 item
-    22."""
-    if devices > 1:
-        raise NotImplementedError(
-            f"export over {devices} devices: the port's parallel paths are "
-            "ROADMAP.md queue 1 item 22; export with --export_devices 1")
+    ``devices > 1``: a data-parallel artifact, whose program renders
+    ``chunk / devices`` rays on each of that many devices (module
+    docstring)."""
+    device = model.device
+    _check_devices(device.type, devices, chunk)
     frozen = copy.deepcopy(model).eval()
     frozen.freeze_tables()
     program = RenderProgram(frozen, crf, skip_learn_crf, fine_cull).eval()
-    device = frozen.device
-    rays = torch.zeros(int(chunk), 3, 2, device=device)
+    rays = torch.zeros(int(chunk) // devices, 3, 2, device=device)
     rays[:, 2, 1] = -1.0
     with torch.no_grad():
         exported = torch.export.export(program, (rays,), strict=False)
@@ -231,6 +256,7 @@ def export_renderer(model, chunk: int = 32768, crf=None,
     header = {
         "format_version": FORMAT_VERSION,
         "chunk": int(chunk),
+        "devices": int(devices),
         "device": device.type,
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
@@ -264,14 +290,35 @@ def save_renderer(path: str, exported, meta: dict) -> int:
 
 class ExportedRenderer:
     """A loaded artifact: callable on one ray chunk, plus whole poses in
-    chunks (``train/evaluate.py::render_poses``)."""
+    chunks (``train/evaluate.py::render_poses``). A data-parallel
+    artifact's replicas go to ``devices`` (default: the first ``k`` of the
+    artifact's device type, k recorded at export; fewer raise)."""
 
-    def __init__(self, exported, meta: dict):
+    def __init__(self, exported, meta: dict, devices=None):
         self._exported = exported
-        self._module = exported.module()
         self.meta = dict(meta)
         self.chunk = int(meta["chunk"])
-        self.device = torch.device(meta.get("device", "cpu"))
+        k = int(meta.get("devices", 1))
+        kind = torch.device(meta.get("device", "cpu")).type
+        if devices is None and k > 1:
+            avail = device_count(kind)
+            if avail < k:
+                raise ValueError(f"artifact was exported for {k} devices; "
+                                 f"this process has {avail}")
+            devices = [torch.device(kind, i) for i in range(k)]
+        if devices is None:
+            self.devices = [torch.device(kind)]
+            self._modules = [exported.module()]
+        else:
+            from torch.export.passes import move_to_device_pass
+
+            if len(devices) != k:
+                raise ValueError(f"artifact was exported for {k} devices; "
+                                 f"{len(devices)} given")
+            self.devices = [torch.device(d) for d in devices]
+            self._modules = [move_to_device_pass(exported, d).module()
+                             for d in self.devices]
+        self.device = self.devices[0]
 
     @torch.inference_mode()
     def __call__(self, rays):
@@ -280,8 +327,13 @@ class ExportedRenderer:
                 f"this artifact renders fixed chunks of shape ({self.chunk}, "
                 f"3, 2); got {tuple(rays.shape)}: pad, or export again with "
                 "another --export_chunk")
-        rays = torch.as_tensor(rays).to(self.device, torch.float32)
-        return tuple(self._module(rays))
+        # each replica queues its share on its own device before any
+        # output is gathered
+        outs = [m(part.to(d, torch.float32)) for m, d, part in
+                zip(self._modules, self.devices,
+                    torch.as_tensor(rays).chunk(len(self._modules)))]
+        return tuple(torch.cat([o[j].to(self.device) for o in outs])
+                     for j in range(len(outs[0])))
 
     def render_poses(self, poses, H: Optional[int] = None,
                      W: Optional[int] = None, K=None,
@@ -336,11 +388,8 @@ def export_experiment(args, out_path: str, chunk: int = 32768,
     step is before ``--tone_mapping_start_learn_iter``, as the train loop's
     renders do), takes the fine cull with ``--fine_cull_eval`` and a
     ``--fine_cull_capacity`` (``evdeblurnerf_tpu/serving.py:257-263``), and
-    writes the artifact. Used by ``evdn-export-torch``."""
-    if devices > 1:
-        raise NotImplementedError(
-            f"export over {devices} devices: the port's parallel paths are "
-            "ROADMAP.md queue 1 item 22; export with --export_devices 1")
+    writes the artifact, data-parallel over ``devices``. Used by
+    ``evdn-export-torch``."""
     from . import config
     from .train import loop
     from .train.checkpoint import CheckpointManager
@@ -348,6 +397,7 @@ def export_experiment(args, out_path: str, chunk: int = 32768,
     args = config.resolve_event_thresholds(copy.copy(args))
     config.check_supported(args)
     device = loop.resolve_device(args)
+    _check_devices(device.type, devices, chunk)
     dargs = copy.copy(args)
     dargs.use_events = False
     llff, _ = loop.build_datasets(dargs)
@@ -362,6 +412,7 @@ def export_experiment(args, out_path: str, chunk: int = 32768,
         raise FileNotFoundError(f"no checkpoint found under {ckpt_dir}")
     exported, meta = export_renderer(
         model, chunk=chunk, crf=crf, fine_cull=eval_fine_cull(args),
+        devices=devices,
         skip_learn_crf=step < args.tone_mapping_start_learn_iter,
         meta={"H": int(llff.h), "W": int(llff.w),
               "K": np.asarray(llff.K, np.float64).tolist(),

@@ -114,9 +114,15 @@ class CheckpointManager:
         name only when it is complete. A file of that step left by an
         earlier run (``--no_reload`` into a used directory) is replaced, so
         the next auto-resume finds this run's weights."""
+        return self.write(step, checkpoint_dict(state, wandb_id))
+
+    def write(self, step: int, ckpt: dict) -> str:
+        """Write a checkpoint dictionary made elsewhere (the gathered one
+        of sliced tables, ``parallel/tp.py::checkpoint_dict``) as
+        :meth:`save` writes its own."""
         path = self.path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(checkpoint_dict(state, wandb_id), tmp)
+        torch.save(ckpt, tmp)
         os.replace(tmp, path)
         return path
 

@@ -9,6 +9,13 @@ padded by repeating the last ray. Rays are generated on the device and the
 results stay there until the end. :func:`apply_crf` puts renders through
 the rgb CRF, :func:`depth_colormap` colours a depth map and
 :func:`format_test_metrics` formats one line of ``test_metrics.txt``.
+
+Data-parallel renders (``evaluate.py:23-56,78`` of the JAX package): with
+a ``layout`` of several ray shards the stream is padded to ``chunk`` times
+their number, each rank renders its ``chunk`` rays of every such stretch,
+and the outputs are gathered by ``all_reduce`` into a zero-filled buffer
+(``parallel/mesh.py::gather_rows``: gloo has no ``all_gather`` of CUDA
+tensors), so every rank ends with the whole render.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Callable, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from ..utils.rays import get_rays
 
 
@@ -40,13 +48,15 @@ def pose_rays(poses, H: int, W: int, K, device) -> torch.Tensor:
 @torch.inference_mode()
 def render_poses(chunk_fn: Callable, poses, H: int, W: int, K,
                  chunk: int = 32768, render_factor: int = 0,
-                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 device=None, layout: mesh.Layout = mesh.Layout()
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render each [3, 4] pose; returns (rgbs [N, H, W, 3], depths [N, H, W])
     on ``device``.
 
     ``chunk_fn(rays [chunk, 3, 2]) -> (rgb, depth, acc)`` renders one chunk.
     ``render_factor > 0`` renders at H/factor x W/factor (fast preview,
-    ref: renderer.py:598-601).
+    ref: renderer.py:598-601). ``layout``: this rank renders its shard of
+    every ``chunk`` x ``n_data`` rays (module docstring).
     """
     if render_factor > 0:
         H, W = H // render_factor, W // render_factor
@@ -54,17 +64,19 @@ def render_poses(chunk_fn: Callable, poses, H: int, W: int, K,
         K[:2, :] = K[:2, :] / render_factor
     rays = pose_rays(poses, H, W, K, device)
     n = rays.shape[0]
-    pad = -n % chunk
+    stride = chunk * layout.n_data
+    pad = mesh.pad_to_multiple(n, stride) - n
     if pad:
         rays = torch.cat([rays, rays[-1:].expand(pad, 3, 2)], 0)
-    rgbs, depths = [], []
-    for s in range(0, rays.shape[0], chunk):
+    first = layout.data_rank * chunk
+    outs = []
+    for s in range(first, rays.shape[0], stride):
         rgb, depth, _ = chunk_fn(rays[s:s + chunk])
-        rgbs.append(rgb)
-        depths.append(depth)
+        outs.append(torch.cat([rgb, depth[:, None]], -1))
+    out = mesh.gather_rows(torch.stack(outs), layout).reshape(-1, 4)[:n]
     n_poses = n // (H * W)
-    return (torch.cat(rgbs, 0)[:n].reshape(n_poses, H, W, 3),
-            torch.cat(depths, 0)[:n].reshape(n_poses, H, W))
+    return (out[:, :3].reshape(n_poses, H, W, 3),
+            out[:, 3].reshape(n_poses, H, W))
 
 
 @torch.inference_mode()

@@ -22,10 +22,21 @@ the expected kept share of lanes fits ``--occ_gate_margin`` times the
 capacity; each refresh logs ``train/occ_frac`` and
 ``train/coarse_cull_active``.
 
-Dropped against the JAX loop, as TPU mechanism: the device mesh and its
-shardings, the batch rounding to the mesh, the compiled-program cache and
-multi-host. Not ported yet (``config.check_supported`` raises): tensor
-parallelism.
+The parallel paths (``parallel/``): under ``torchrun`` or ``--multihost``
+(``cli.py`` joins the process group) each process drives its own card
+(``--device cuda`` is ``cuda:<LOCAL_RANK>``; an explicit ``cuda:N``
+stays), assembles the global batch from the shared seed and trains on its
+rows, the batch rounded to a multiple of the ray shards times
+``grad_accum`` (:func:`_round_to_devices`); ``--tp_model_parallel k``
+slices the voxel tables over k ranks of each ray shard after any resume.
+The held-out renders are data-parallel. The primary process alone writes
+``args.txt``, the logs, the checkpoints (under tensor parallelism the
+tables gathered first) and the PNGs; a barrier follows each.
+Tensor parallelism across hosts is refused before the dataset is built,
+as in the JAX package.
+
+Dropped against the JAX loop, as TPU mechanism: the shardings of the
+device mesh and the compiled-program cache.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from ..data import (ImageBatchSampler, LLFFDataset, LLFFEventsDataset,
                     Prefetcher, RandomEventSampler, RandomRaySampler, endless)
 from ..models.system import build_occ_grid
 from ..ops.occupancy import expected_keep_fraction
+from ..parallel import mesh, multihost, tp
 from ..utils.logger import Logger, write_png
 from ..utils.metrics import compute_img_metric, lpips_trunk_kind
 from ..utils.misc import (annealing_interpolator,
@@ -103,15 +115,16 @@ class TraceWindow:
 
 def resolve_device(args) -> torch.device:
     """The device of ``--device`` (``cuda`` unless the caller asks for the
-    CPU). A CUDA device that is not there raises: nothing carries on on
-    the CPU because it found no card."""
-    device = torch.device(getattr(args, "device", None) or "cuda")
+    CPU): ``cuda`` is this process's card, ``cuda:<LOCAL_RANK>``
+    (``parallel/multihost.py::local_device``), an explicit ``cuda:N`` wins.
+    A CUDA device that is not there raises: nothing carries on on the CPU
+    because it found no card."""
+    device = multihost.local_device(getattr(args, "device", None) or "cuda")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"--device {device} asked for, but torch.cuda.is_available() "
                 "is False; pass --device cpu to run on the CPU")
-        device = torch.device("cuda", device.index or 0)
         torch.cuda.set_device(device)
         # full float32 products, as every parity bound assumes
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,6 +177,21 @@ def build_initial_state(args, model, crf, generator: torch.Generator,
                                      crf_identity_prefit=crf_identity_prefit)
 
 
+def _round_to_devices(n: int, n_dev: int, name: str,
+                      grad_accum: int = 1) -> int:
+    """Round the batch so each grad-accum MICROBATCH divides over the ray
+    shards (``evdeblurnerf_tpu/train/loop.py:83-99``): the step cuts the
+    rank's rows into ``grad_accum`` microbatches, and microbatch k of every
+    rank makes the global one, so the quantum is n_dev * grad_accum."""
+    quantum = n_dev * max(grad_accum, 1)
+    if n % quantum:
+        new = max(quantum, (n // quantum) * quantum)
+        print(f"[parallel] rounding {name} {n} -> {new} "
+              f"(multiple of {n_dev} devices x grad_accum={grad_accum})")
+        return new
+    return n
+
+
 def _image_sampler_factory(args, llff):
     # One persistent sampler instance: its np.random.Generator state then
     # advances across epochs (torch RandomSampler semantics) instead of
@@ -177,22 +205,31 @@ def _image_sampler_factory(args, llff):
     return lambda: iter(sampler)
 
 
-def _render(args, llff, model, poses, device, render_factor: int = 0):
-    """(rgbs [N, H, W, 3], depths [N, H, W]) as numpy, linear radiance."""
+def _render(args, llff, model, poses, device, render_factor: int = 0,
+            layout: mesh.Layout = mesh.Layout()):
+    """(rgbs [N, H, W, 3], depths [N, H, W]) as numpy, linear radiance;
+    every rank of ``layout`` renders its shard and gets the whole."""
     model.eval()
     chunk_fn = functools.partial(model.render_chunk,
                                  fine_cull=eval_fine_cull(args))
     rgbs, depths = render_poses(chunk_fn, poses, llff.h, llff.w,
                                 llff.K, chunk=args.chunk,
-                                render_factor=render_factor, device=device)
+                                render_factor=render_factor, device=device,
+                                layout=layout)
     return rgbs.cpu().numpy(), depths.cpu().numpy()
 
 
 def run_test_renders(args, llff, model, crf, device, step, logger, expdir,
-                     skip_learn_crf: bool):
+                     skip_learn_crf: bool,
+                     layout: mesh.Layout = mesh.Layout()):
     """Held-out view eval (ref: run_nerf.py:642-709), at the full
-    ``--chunk``: chunking is value-invisible."""
-    rgbs, depths = _render(args, llff, model, llff.test_poses, device)
+    ``--chunk``: chunking is value-invisible. Every rank renders; the
+    primary alone scores and writes. Returns the metrics (None off the
+    primary)."""
+    rgbs, depths = _render(args, llff, model, llff.test_poses, device,
+                           layout=layout)
+    if not multihost.is_primary():
+        return None
     rgbs = apply_crf(crf, rgbs, skip_learn_crf=skip_learn_crf)
     gt = np.asarray(llff.test_images)
 
@@ -223,10 +260,11 @@ def run_test_renders(args, llff, model, crf, device, step, logger, expdir,
 
 
 def run_video_render(args, llff, model, crf, device, step, logger,
-                     skip_learn_crf: bool):
+                     skip_learn_crf: bool,
+                     layout: mesh.Layout = mesh.Layout()):
     """Spiral/EPI novel-view video (ref: run_nerf.py:711-734)."""
     rgbs, depths = _render(args, llff, model, llff.render_poses, device,
-                           render_factor=args.render_factor)
+                           render_factor=args.render_factor, layout=layout)
     rgbs = apply_crf(crf, rgbs, skip_learn_crf=skip_learn_crf)
     logger.video("video/rgb", rgbs, step)
     logger.video("video/disp", np.stack([depth_colormap(d) for d in depths]),
@@ -239,10 +277,29 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
     """Full training lifecycle; returns the final TrainState (for tests).
 
     ``max_iters`` bounds the steps of this call; ``llff_cls`` /
-    ``events_cls`` as in :func:`build_datasets`."""
+    ``events_cls`` as in :func:`build_datasets`. In a process group
+    (``parallel/multihost.py``) every rank calls it."""
     check_supported(args)
+    tp_k = max(1, int(getattr(args, "tp_model_parallel", 1) or 1))
+    # refused BEFORE the (minutes-long on real data) dataset build, as the
+    # JAX loop refuses it (evdeblurnerf_tpu/train/loop.py:252-263)
+    if tp_k > 1 and (getattr(args, "multihost", False)
+                     or multihost.spans_hosts()):
+        raise NotImplementedError(
+            "--tp_model_parallel with multi-host training is not supported "
+            "(as in the JAX package): train data-parallel across hosts "
+            "(the voxel tables replicate), or tensor-parallel on a single "
+            "host under torchrun")
     resolve_event_thresholds(args)
     device = resolve_device(args)
+    layout = mesh.create_layout(tp_k)
+    primary = multihost.is_primary()
+    multihost.build_kernels(device)
+    ga = args.grad_accum or 1
+    args.N_rand = _round_to_devices(args.N_rand, layout.n_data, "N_rand",
+                                    grad_accum=ga)
+    args.events_N_rand = _round_to_devices(args.events_N_rand, layout.n_data,
+                                           "events_N_rand", grad_accum=ga)
 
     seed_everything(args.seed)
     llff, ev = build_datasets(args, llff_cls, events_cls)
@@ -252,9 +309,10 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
 
     expdir = os.path.join(args.basedir, args.expname)
     os.makedirs(expdir, exist_ok=True)
-    write_args_txt(args, os.path.join(expdir, "args.txt"))
-    if args.config and os.path.exists(args.config):
-        shutil.copyfile(args.config, os.path.join(expdir, "config.txt"))
+    if primary:
+        write_args_txt(args, os.path.join(expdir, "args.txt"))
+        if args.config and os.path.exists(args.config):
+            shutil.copyfile(args.config, os.path.join(expdir, "config.txt"))
 
     sampler = endless(_image_sampler_factory(args, llff))
 
@@ -271,6 +329,10 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
         print(f"Resumed from step {start}")
         if ev is not None:
             ev.global_step = start
+    # each rank keeps its slice of the whole tables it built or restored
+    if tp.shard_state(state, layout) and primary:
+        print(f"[parallel] voxel tables sliced over {tp_k} ranks "
+              f"({layout.n_data} ray shards)")
 
     # W&B run-id persistence for resume (ref: run_nerf.py:292): in the
     # checkpoint, and in a sidecar json as the JAX package keeps it
@@ -282,8 +344,8 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
     logger = Logger(log_dir=args.tbdir or args.basedir, expname=args.expname,
                     use_wandb=not args.no_wandb and not args.render_only,
                     use_tensorboard=args.use_tensorboard, wandb_id=wandb_id,
-                    args=args)
-    if logger.wandb_id is not None:
+                    args=args, enabled=primary)
+    if logger.wandb_id is not None and primary:
         with open(wandb_id_path, "w") as f:
             json.dump({"wandb_id": logger.wandb_id}, f)
 
@@ -295,8 +357,12 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
         name = "test" if args.render_test else "path"
         t0 = time.perf_counter()
         rgbs, depths = _render(args, llff, model, poses, device,
-                               render_factor=args.render_factor)
+                               render_factor=args.render_factor,
+                               layout=layout)
         dt = time.perf_counter() - t0
+        if not primary:
+            logger.close()
+            return state
         print(f"  rendered {len(poses)} poses ({rgbs.size // 3} rays) in "
               f"{dt:.2f}s")
         rgbs = apply_crf(crf, rgbs, skip_learn_crf=False)
@@ -333,19 +399,22 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
             0.0, 1.0, kernel_end_warmup_iter, args.kernel_start_warmup_mode,
             start_step=args.kernel_start_iter)
 
-    step_fn = build_train_step(args)
+    step_fn = build_train_step(args, layout=layout)
 
     # prefetch pipelines; the numpy samplers restart from the seed on
-    # resume, as in the JAX package
-    img_prefetch = Prefetcher(lambda: llff.batch(next(sampler)),
-                              device=device)
+    # resume, as in the JAX package; every rank assembles the global batch
+    # and keeps its rows
+    img_prefetch = Prefetcher(
+        lambda: mesh.shard_batch(llff.batch(next(sampler)), layout, ga),
+        device=device)
     ev_prefetch = None
     if args.use_events and args.add_event_egm:
         ev_sampler = RandomEventSampler(len(ev), args.events_N_rand,
                                         seed=args.seed)
         ev_iter = endless(lambda: iter(ev_sampler))
-        ev_prefetch = Prefetcher(lambda: ev.batch(next(ev_iter)),
-                                 device=device)
+        ev_prefetch = Prefetcher(
+            lambda: mesh.shard_batch(ev.batch(next(ev_iter)), layout, ga),
+            device=device)
 
     # the occupancy coarse cull: the grid is built at the cull's start and
     # refreshed on its cadence; the gate decides at each refresh
@@ -429,15 +498,26 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
             if (i % args.i_weights == 0 and i > 0) or is_last:
                 # keyed by the post-update step count so resume continues
                 # exactly where training left off
-                ckpt.save(state.step, state, wandb_id=logger.wandb_id)
+                # (sliced tables are gathered by every rank of their group)
+                if layout.n_model > 1:
+                    ckpt_dict = tp.checkpoint_dict(state, layout,
+                                                   logger.wandb_id)
+                    if primary:
+                        ckpt.write(state.step, ckpt_dict)
+                elif primary:
+                    ckpt.save(state.step, state, wandb_id=logger.wandb_id)
+                multihost.barrier()
             if (i % args.i_testset == 0 and i > 0) or is_last:
                 run_test_renders(
                     args, llff, model, crf, device, i, logger, expdir,
-                    skip_learn_crf=i < args.tone_mapping_start_learn_iter)
+                    skip_learn_crf=i < args.tone_mapping_start_learn_iter,
+                    layout=layout)
+                multihost.barrier()
             if i % args.i_video == 0 and i > 0:
                 run_video_render(
                     args, llff, model, crf, device, i, logger,
-                    skip_learn_crf=i < args.tone_mapping_start_learn_iter)
+                    skip_learn_crf=i < args.tone_mapping_start_learn_iter,
+                    layout=layout)
     finally:
         trace.stop()
         img_prefetch.close()

@@ -44,14 +44,18 @@ def build_model(args, aabb, H: int, W: int, focal: float, near: float,
     model = EvDeblurNeRF(config_from_args(args, aabb, H, W, focal, near, far),
                          kernel_config_from_args(args), num_images,
                          generator=generator, device=device, K=K)
-    crf = TonemappingTransform(
+    return model, build_crf(args, generator, device)
+
+
+def build_crf(args, generator: torch.Generator | None = None, device=None):
+    """The CRF of the flags, its weights drawn from ``generator``."""
+    return TonemappingTransform(
         map_type_rgb=args.tone_mapping_type,
         map_type_event=args.tone_mapping_events_type,
         gamma=args.tone_mapping_gamma,
         extra_features_event=(0 if args.tone_mapping_events_add_bii == "none"
                               else 2),
         generator=generator, device=device)
-    return model, crf
 
 
 def create_train_state(model: nn.Module, crf: nn.Module, args,

@@ -23,6 +23,14 @@ its image, pts0 and EGM ``stage0`` terms drop out, and ``mode=nerf`` has
 no TV term, as in the JAX step. The culls (``fine_cull``, and
 ``coarse_cull`` with the occupancy grid) reach every render of the step,
 the event renders included.
+
+Data parallelism (``parallel/mesh.py``, the ``layout`` of
+:func:`build_train_step`): each rank renders its rows of the global batch
+with the draws and the BatchNorm statistics of the global batch
+(``mesh.ray_shard``), the gradients are averaged over the ray shards
+before the norms and the clip, and the logged terms are the global
+batch's. Tensor-parallel tables (``parallel/tp.py``) sum a table's
+squared gradient over its slices for the norms and the clip.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..parallel import mesh, tp
 from ..utils.events import egm_loss
 from ..utils.misc import annealing_interpolator
 from .optim import set_lr
@@ -146,7 +155,8 @@ def _microbatch(batch: Dict[str, torch.Tensor], k: int, accum: int):
     return out
 
 
-def build_train_step(args, return_grads: bool = False):
+def build_train_step(args, return_grads: bool = False,
+                     layout: mesh.Layout = mesh.Layout()):
     """Returns ``step(state, batch, ev_batch, sw, force_naive,
     events_active, fine_cull=False, coarse_cull=False, occ_grid=None) ->
     metrics``: one optimizer step of ``state`` (``train/state.py``) on a
@@ -154,7 +164,11 @@ def build_train_step(args, return_grads: bool = False):
     read only with ``coarse_cull``. ``metrics`` holds detached tensors: ``loss`` (the mean
     over microbatches) and the ladder's terms of the last microbatch, the
     per-parameter gradient norms unless ``no_log_grads_norm``, and with
-    ``return_grads`` the raw pre-clip gradients under ``grads``."""
+    ``return_grads`` the raw pre-clip gradients under ``grads``.
+
+    ``layout``: the process layout (``parallel/mesh.py``); the batches
+    are then this rank's rows (``mesh.shard_batch``), and the step is the
+    one-process step on the global batch, its metrics the global ones."""
     tv_weight = float(args.kernel_tv_loss_weight)
     thresh_neg = float(args.events_threshold_neg
                        if args.events_threshold_neg is not None
@@ -175,6 +189,7 @@ def build_train_step(args, return_grads: bool = False):
     color_events = bool(args.event_egm_use_colorevents)
     clip_norm = args.clip_grads_norm
     accum = max(1, int(getattr(args, "grad_accum", 1) or 1))
+    egm_total = mesh.shard_total(layout)
 
     def ev_extra_feat(ev_batch):
         """CRF conditioning from the BII cumsums (ref: run_nerf.py:521-532)."""
@@ -201,16 +216,19 @@ def build_train_step(args, return_grads: bool = False):
         rays_info = None if force_naive else {
             k: batch[k] for k in ("images_idx", "rays_x", "rays_y", "poses")
             if k in batch}
-        rgb, rgb1, extra_loss, extra_tensor = model.train_forward(
-            batch["rays"], rays_info, force_naive, return_pts0_rgb=True,
-            generator=gen, **culls)
+        with mesh.ray_shard(layout):
+            rgb, rgb1, extra_loss, extra_tensor = model.train_forward(
+                batch["rays"], rays_info, force_naive, return_pts0_rgb=True,
+                generator=gen, **culls)
         target = batch["rgbsf"]
         rgb_e = enc(rgb)
         img_loss = img2mse(rgb_e, target)
         if rgb1 is not None:
             img_loss = img_loss + img2mse(enc(rgb1), target)
         aux["img_loss"] = img_loss
-        aux["psnr"] = mse2psnr(img2mse(rgb_e, target))
+        # the PSNR of the global batch is taken from the global MSE
+        aux["_mse"] = img2mse(rgb_e, target)
+        aux["psnr"] = mse2psnr(aux["_mse"])
         loss = sw.w_img * img_loss
 
         if "rgb_awp" in extra_tensor:
@@ -250,8 +268,11 @@ def build_train_step(args, return_grads: bool = False):
                      else None)
             ev_rays = torch.cat([ev_batch["events_rays_start"],
                                  ev_batch["events_rays_end"]], 0)
-            rgb_se, rgb1_se, _, _ = model.train_forward(
-                ev_rays, None, True, generator=gen, with_tv=False, **culls)
+            # the start rays' shard, then the end rays'
+            with mesh.ray_shard(layout, segments=2):
+                rgb_se, rgb1_se, _, _ = model.train_forward(
+                    ev_rays, None, True, generator=gen, with_tv=False,
+                    **culls)
             s_rgb, e_rgb = rgb_se.chunk(2)
             s_rgb1, e_rgb1 = ((None, None) if rgb1_se is None
                               else rgb1_se.chunk(2))
@@ -265,11 +286,13 @@ def build_train_step(args, return_grads: bool = False):
             if "stage0" in egm_stages and s_rgb1 is not None:
                 egm = egm + egm_loss(luma(s_rgb1), luma(e_rgb1), bii,
                                      color_mask=cmask,
-                                     color_weight=sw.color_weight)
+                                     color_weight=sw.color_weight,
+                                     weight_total=egm_total)
             if "stage1" in egm_stages:
                 egm = egm + egm_loss(luma(s_rgb), luma(e_rgb), bii,
                                      color_mask=cmask,
-                                     color_weight=sw.color_weight)
+                                     color_weight=sw.color_weight,
+                                     weight_total=egm_total)
             aux["event_egm"] = egm
             loss = loss + egm * sw.w_egm
         aux["loss"] = loss
@@ -295,14 +318,26 @@ def build_train_step(args, return_grads: bool = False):
                                 culls)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
-        grads = [(n, p.grad) for n, p in named if p.grad is not None]
+        live = [(n, p) for n, p in named if p.grad is not None]
+        grads = [(n, p.grad) for n, p in live]
         if accum > 1:
             for _, g in grads:
                 g.div_(accum)
+        mesh.all_reduce_gradients([p for _, p in live], layout)
+        # the tables' component slices: their norms sum over the slices
+        sliced = [n for n, p in live if getattr(p, "tp_kind", "") == "slice"]
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = loss_sum / accum
+        aux = mesh.mean_scalars(aux, layout)
+        mse = aux.pop("_mse")
+        if layout.n_data > 1:
+            aux["psnr"] = mse2psnr(mse)
+            aux["pts0_psnr"] = mse2psnr(aux["pts0_loss"])
         if not getattr(args, "no_log_grads_norm", False):
             norms = {n: torch.linalg.vector_norm(g) for n, g in grads}
+            if sliced:
+                sq = tp.model_sum([norms[n] ** 2 for n in sliced], layout)
+                norms.update(zip(sliced, map(torch.sqrt, sq)))
             aux.update({f"grads/{n}": v for n, v in norms.items()})
             aux["grads/total"] = torch.sqrt(sum(v * v for v in
                                                 norms.values()))
@@ -310,8 +345,13 @@ def build_train_step(args, return_grads: bool = False):
             aux["grads"] = {n: g.clone() for n, g in grads}
         if clip_norm is not None:
             # clip only the model's gradients (ref: run_nerf.py:596-599)
-            nerf = [g for n, g in grads if not n.startswith("crf.")]
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in nerf))
+            nerf = [(n, g) for n, g in grads if not n.startswith("crf.")]
+            sq = {n: torch.sum(g * g) for n, g in nerf}
+            if sliced:
+                sq.update(zip(sliced, tp.model_sum([sq[n] for n in sliced],
+                                                   layout)))
+            nerf = [g for _, g in nerf]
+            gnorm = torch.sqrt(sum(sq.values()))
             scale = torch.clamp_max(clip_norm / (gnorm + 1e-6), 1.0)
             for g in nerf:
                 g.mul_(scale)

@@ -9,7 +9,7 @@ in ``ops/events_native.py``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,13 +96,17 @@ def compact_events(events, h: int, w: int, coords_decimals=None,
 def egm_loss(luma_start: torch.Tensor, luma_end: torch.Tensor,
              bii: torch.Tensor, color_mask: Optional[torch.Tensor] = None,
              color_weight: Optional[Sequence[float]] = None,
-             log_eps: float = 1e-5) -> torch.Tensor:
+             log_eps: float = 1e-5,
+             weight_total: Optional[Callable] = None) -> torch.Tensor:
     """Weighted mean of ``(log(L_end + eps) - log(L_start + eps) - bii)^2``
     with ``bii = theta+ * SumP+ + theta- * SumP-`` from the caller.
 
     luma [N, C]; bii [N]. With a one-hot [N, 3] ``color_mask`` (a colour
     event camera's Bayer pattern) each ray's own channel is taken, weighted
-    by ``color_weight[channel]`` when given.
+    by ``color_weight[channel]`` when given. ``weight_total``: the
+    denominator from the local sum of weights, for a rank of a
+    data-parallel step (``parallel/mesh.py::shard_total``), whose shards'
+    sums of colour weights differ.
     """
     pred_bii = torch.log(luma_end + log_eps) - torch.log(luma_start + log_eps)
     if color_mask is not None:
@@ -118,4 +122,7 @@ def egm_loss(luma_start: torch.Tensor, luma_end: torch.Tensor,
         pred_bii = pred_bii.squeeze(-1)
         weight = torch.ones_like(pred_bii)
     sq = (pred_bii - bii) ** 2
-    return torch.sum(sq * weight) / torch.sum(weight)
+    total = torch.sum(weight)
+    if weight_total is not None:
+        total = weight_total(total)
+    return torch.sum(sq * weight) / total

@@ -202,11 +202,42 @@ def test_bf16_and_fine_cull_artifacts(tmp_path, bf16):
 
 
 def test_export_over_several_devices_raises_item_22(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 22"):
+    """An export over more devices than the process has raises the JAX
+    package's ``ValueError`` (``evdeblurnerf_tpu/serving.py:244-249``);
+    one CPU is one device."""
+    with pytest.raises(ValueError, match="export requested 2 devices but "
+                       "this process has 1"):
         serving.export_renderer(_model(), chunk=CHUNK, devices=2)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(ValueError, match="export requested 2 devices"):
         tcli.export_main(["--out", str(tmp_path / "x.evdnpt"),
                           "--export_devices", "2", "--device", "cpu"])
+
+
+def test_data_parallel_artifact_splits_chunks_over_replicas(tmp_path,
+                                                            monkeypatch):
+    """A 2-device artifact renders half a chunk a replica; loaded with its
+    replicas on two devices (here both the CPU) it renders what the live
+    renderer renders, and a process with fewer devices refuses it."""
+    model, crf = _model(), _crf()
+    rays = _rays()
+    live = _live(model, rays, crf)
+    monkeypatch.setattr(serving, "device_count", lambda kind: 2)
+    exported, header = serving.export_renderer(model, chunk=CHUNK, crf=crf,
+                                               meta=META, devices=2)
+    assert header["devices"] == 2 and header["chunk"] == CHUNK
+    path = str(tmp_path / "dp.evdnpt")
+    serving.save_renderer(path, exported, header)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="exported for 2 devices; this "
+                       "process has 1"):
+        serving.load_renderer(path)
+    with open(path, "rb") as f:
+        f.read(len(serving.MAGIC))
+        (n,) = struct.unpack("<Q", f.read(8))
+        meta = json.loads(f.read(n))
+        program = torch.export.load(f)
+    r = serving.ExportedRenderer(program, meta, devices=["cpu", "cpu"])
+    _close(r(rays), live)
 
 
 @pytest.fixture(scope="module")

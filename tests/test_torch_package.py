@@ -184,13 +184,14 @@ def test_default_args_and_args_txt_match_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(tp_model_parallel=2), 22), (dict(multihost=True), 22),
+    (dict(tp_model_parallel=2), None), (dict(multihost=True), None),
     (dict(triplane_bf16=True), None)])
 def test_unported_settings_raise_with_their_item(flags, item):
     """A flag that asks for what the port does not do yet parses, and the
     loop refuses it naming its ROADMAP queue-1 item; a ported one
-    (``item`` None: bf16 tables) is accepted; flags that only steer TPU
-    mechanisms are accepted and ignored."""
+    (``item`` None: tensor-parallel tables, the multi-host launch, bf16
+    tables) is accepted; flags that only steer TPU mechanisms are accepted
+    and ignored."""
     if item is None:
         args = tconfig.default_args(**flags)
         tconfig.check_supported(args)
