@@ -17,7 +17,8 @@ built once before timing, as ``bench.py`` builds it (the culled width is a
 fixed lane budget, so the grid's content does not change the work), the
 loop with its own refreshes, and the served pose with ``--fine_cull_eval``.
 ``--triplane_bf16`` reads them with bf16 tables (the served pose through
-the bf16 eval chain).
+the bf16 eval chain); ``--matmul_precision high`` with the card's float32
+products in TF32 (``evdeblurnerf_torch/utils/precision.py``).
 Three readings:
 
 * ``step_only``: ``train/step.py`` on one fixed batch, 3 warm-up steps, then
@@ -41,6 +42,7 @@ Usage, from the root of a checkout (needs one CUDA card and nvcc):
     python3 bench_torch.py [--only step_only|loop|serve] [--iters 10]
                            [--fine_cull_capacity 0.25]
                            [--coarse_cull_capacity 0.25] [--triplane_bf16]
+                           [--matmul_precision highest|high|default]
                            [--out FILE]
     python3 bench_torch.py --device cpu --tiny     # the same code, small
 """
@@ -431,7 +433,7 @@ def run(n_rand=1024, events_n_rand=4096, grad_accum=1, iters=10,
         overrides.update(TINY)
     overrides.update(arg_overrides or {})
     args = train_args(device=device, **overrides)
-    dev = resolve_device(args)          # TF32 off, the card made current
+    dev = resolve_device(args)     # the card made current, precision set
     result = dict(
         device=dict(platform="gpu" if dev.type == "cuda" else "cpu",
                     kind=(torch.cuda.get_device_name(dev)
@@ -476,6 +478,11 @@ def main(argv=None):
     ap.add_argument("--triplane_bf16", action="store_true",
                     help="read the step, loop and serve with bf16 tables "
                          "(the serve through the bf16 eval chain)")
+    ap.add_argument("--matmul_precision", default="highest",
+                    choices=("highest", "high", "default"),
+                    help="the card's float32 products: exact float32 "
+                         "('highest', the default) or TF32 ('high' or "
+                         "'default')")
     ap.add_argument("--tiny", action="store_true",
                     help="the same code at a small size, for --device cpu")
     ap.add_argument("--out", metavar="FILE", default=None,
@@ -485,6 +492,7 @@ def main(argv=None):
                                opts.coarse_cull_capacity)
     if opts.triplane_bf16:
         overrides["triplane_bf16"] = True
+    overrides["matmul_precision"] = opts.matmul_precision
     result = run(opts.n_rand, opts.events_n_rand, opts.grad_accum,
                  opts.iters, overrides, device=opts.device, only=opts.only,
                  tiny=opts.tiny)

@@ -9,7 +9,8 @@ timer are ``bench_torch.py``'s. Phases, one line each (phase 3 one per
 kernel and case, phase 8 a few):
 
 1. environment: torch/CUDA versions, the card's name and power limit,
-   TF32 off;
+   ``--matmul_precision highest`` through the port's resolver
+   (``utils/precision.py``: cuBLAS and cuDNN ``"ieee"``, TF32 off);
 2. build of the hand-written kernels from ``evdeblurnerf_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paper's training step gives it (K1 also at the eval
@@ -188,7 +189,31 @@ kernel and case, phase 8 a few):
     (at most 1% of rays beyond 1e-5); (d) one 480x640 pose rendered
     data-parallel over 2 ranks against phase 4's render (the same bound).
     ``launches_parallel`` of every kernel is its count over the ranks of
-    (b) and (c)'s compared steps.
+    (b) and (c)'s compared steps;
+17. ``--matmul_precision``: (a) each name through the resolver, read back
+    through the per-backend settings (``highest`` ``"ieee"``, ``high`` and
+    ``default`` ``"tf32"``), the CPU's oneDNN settings untouched; (b) the
+    paper step at full width from phase 6's weights and batch at
+    ``highest`` and at ``high``: two steps from one state at each (and at
+    ``highest`` twice, the spread of K5's atomics), the losses relative to
+    ``highest``; then 2 warm-up steps each and blocks of 5 in turns
+    (highest, high, high, highest) on one state: ms/step, peak GiB, device
+    ms a step split into GEMMs (cuBLAS kernel names) and the rest, every
+    training kernel launched at ``high`` (``launches_precision_high``);
+    (c) one 480x640 pose through ``serving.build_renderer`` at both:
+    eval rays/s, device ms a chunk split the same way, the largest and p99
+    pixel difference. ``high`` has no bound against ``highest`` beyond
+    finite losses and renders: TF32 changes results by design;
+18. the two tools: (a) ``tools/preprocess_events_torch.py`` on phase 8's
+    scene (``--h/--w`` and the reader of its ``events.npz``), then phase
+    8's dataset loads the sidecar with no scan (``compute_successor``
+    counted), its successor graph equal to a fresh scan's; (b)
+    ``tools/eval_cull_ab_torch.py`` at capacity 0.25 on the checkpoint of
+    a 30-iteration validation run (phase 12's size): both arms finite,
+    each within 1e-6 of ``render_chunk(fine_cull=...)`` of the restored
+    checkpoint, K1, K3 and K4 launched in both (``launches_cull_ab``: the
+    culled arm's). The script's wall time is printed before and after
+    these two phases.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -346,11 +371,13 @@ def phase_environment():
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from evdeblurnerf_torch.utils.precision import set_matmul_precision
+
+    mode = set_matmul_precision("highest")
     print(f"[1 env] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} device(s), TF32 off")
+          f"{torch.cuda.device_count()} device(s), --matmul_precision "
+          f"highest (cuBLAS and cuDNN {mode!r}: TF32 off)")
     print(card)
     return card
 
@@ -2992,6 +3019,352 @@ def phase_parallel(dev, card, sd, crf_sd, sd_serve, serve):
     return launches, figures
 
 
+# ---------------------------------------------------------------------------
+# phase 17: --matmul_precision
+# ---------------------------------------------------------------------------
+
+PRECISION_NAMES = ("highest", "high", "default")
+# words of the kernel names of cuBLAS (its nvjet and xmma GEMMs, its
+# split-K reduction), cuBLASLt and CUTLASS; no kernel of the port carries
+# one
+GEMM_WORDS = ("gemm", "gemv", "xmma", "nvjet", "splitkreduce", "cutlass",
+              "cublas")
+
+
+def _gemm_split(timing, fn, iters=2):
+    """Device ms a call of ``fn`` split into GEMMs (cuBLAS kernel names)
+    and the rest (the port's kernels, PyTorch's others, copies), with the
+    three largest kernels of each by name."""
+    acts = timing._device_activities(fn, iters)
+    check(acts, "torch.profiler recorded no device activity")
+    by_name = {True: {}, False: {}}
+    for name, us in acts:
+        part = by_name[any(w in name.lower() for w in GEMM_WORDS)]
+        part[name] = part.get(name, 0.0) + us / iters / 1e3
+
+    def top(part):
+        return [(n[:60], round(ms, 3)) for n, ms in
+                sorted(part.items(), key=lambda kv: -kv[1])[:3]]
+
+    return dict(gemm_ms=sum(by_name[True].values()),
+                other_ms=sum(by_name[False].values()),
+                top_gemms=top(by_name[True]), top_other=top(by_name[False]))
+
+
+def _precision_readback():
+    """Phase 17 (a): each name through the resolver, read back through
+    the per-backend settings; the CPU's backend untouched."""
+    import torch
+
+    from evdeblurnerf_torch.utils import precision
+
+    b = torch.backends
+    cpu = (b.mkldnn.matmul.fp32_precision, b.mkldnn.conv.fp32_precision,
+           b.fp32_precision)
+    got = {}
+    for name in (*PRECISION_NAMES, "highest"):
+        mode = precision.set_matmul_precision(name)
+        got[name] = (b.cuda.matmul.fp32_precision,
+                     b.cudnn.conv.fp32_precision)
+        check(got[name] == (precision.FP32_PRECISION[name],) * 2
+              and mode == precision.FP32_PRECISION[name],
+              f"--matmul_precision {name}: cuBLAS, cuDNN read back "
+              f"{got[name]}, mapped {mode!r}")
+        now = (b.mkldnn.matmul.fp32_precision, b.mkldnn.conv.fp32_precision,
+               b.fp32_precision)
+        check(now == cpu, f"--matmul_precision {name} moved the CPU's "
+              f"backend: {cpu} -> {now}")
+    print(f"[17 precision] torch {torch.__version__}: (cuBLAS matmul, cuDNN "
+          f"conv) read back {got}; the CPU's oneDNN matmul, conv and the "
+          f"generic setting {cpu} untouched")
+    return got
+
+
+def _sd_state(args, dev, sd, crf_sd):
+    """(model, state) of phase 6's weights and CRF, its draws from SEED."""
+    import torch
+
+    from evdeblurnerf_torch.train import state as tstate
+
+    model, crf = tstate.build_model(args, AABB, H, W, FOCAL, NEAR, FAR,
+                                    NUM_IMAGES, device=dev)
+    model.load_state_dict(sd)
+    crf.load_state_dict(crf_sd)
+    return model, tstate.create_train_state(
+        model, crf, args, torch.Generator(device=dev).manual_seed(SEED),
+        crf_identity_prefit=False)
+
+
+def _precision_step(dev, card, sd, crf_sd, timing):
+    """Phase 17 (b): the paper step at highest and at high; returns the
+    high blocks' launches."""
+    import torch
+
+    from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.train import step as tstep
+    from evdeblurnerf_torch.utils.precision import set_matmul_precision
+
+    args = train_args()
+    step = tstep.build_train_step(args)
+    sw_of = tstep.schedule_weights_fn(args)
+    batch, ev_batch = make_train_batch(dev, args.N_rand, args.events_N_rand)
+    n_rays = args.N_rand * args.kernel_ptnum + 2 * args.events_N_rand
+
+    # two steps from one state at each setting, highest twice: the spread
+    # of K5's atomics beside TF32's difference
+    two = {}
+    for label, name in (("highest", "highest"), ("highest again", "highest"),
+                        ("high", "high")):
+        set_matmul_precision(name)
+        model, state = _sd_state(args, dev, sd, crf_sd)
+        two[label] = [float(step(state, batch, ev_batch, sw_of(state.step),
+                                 False, True)["loss"]) for _ in range(2)]
+        del model, state
+        torch.cuda.empty_cache()
+    rel = {label: [abs(a - b) / abs(b) for a, b in zip(v, two["highest"])]
+           for label, v in two.items() if label != "highest"}
+
+    model, state = _sd_state(args, dev, sd, crf_sd)
+
+    def one():
+        return step(state, batch, ev_batch, sw_of(state.step), False, True)
+
+    losses = {n: [] for n in ("highest", "high")}
+    for name in losses:
+        set_matmul_precision(name)
+        losses[name] += [float(one()["loss"]) for _ in range(TRAIN_WARMUP)]
+    ms = {n: [] for n in losses}
+    peak, launches = {}, None
+    for name in ("highest", "high", "high", "highest"):
+        set_matmul_precision(name)
+        torch.cuda.synchronize()
+        first = name not in peak
+        if first:
+            torch.cuda.reset_peak_memory_stats()
+        if name == "high" and launches is None:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        timed = [one()["loss"] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / TRAIN_STEPS)
+        if first:
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        if name == "high" and launches is None:
+            launches = dict(kernels.LAUNCHES)
+        losses[name] += [float(v) for v in timed]
+    split = {}
+    for name in losses:
+        set_matmul_precision(name)
+        split[name] = _gemm_split(timing, one)
+    set_matmul_precision("highest")
+    for name, vals in {**losses, **two}.items():
+        check(all(math.isfinite(v) for v in vals),
+              f"non-finite loss ({name}): {vals}")
+    for name in kernels.TRAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "step at --matmul_precision high")
+    print(f"[17 precision] paper step on {card}, {TRAIN_STEPS} steps a "
+          f"block in turns on one state: highest "
+          f"{[round(v, 1) for v in ms['highest']]} ms/step, high "
+          f"{[round(v, 1) for v in ms['high']]} ms/step; high "
+          f"{n_rays * 1e3 / min(ms['high']):.1f} train rays/s (highest "
+          f"{n_rays * 1e3 / min(ms['highest']):.1f}); peak highest "
+          f"{peak['highest']:.2f} GiB, high {peak['high']:.2f} GiB; device "
+          f"ms/step highest GEMMs {split['highest']['gemm_ms']:.2f} + rest "
+          f"{split['highest']['other_ms']:.2f}, high GEMMs "
+          f"{split['high']['gemm_ms']:.2f} + rest "
+          f"{split['high']['other_ms']:.2f}; largest GEMMs highest "
+          f"{split['highest']['top_gemms']}, high {split['high']['top_gemms']}"
+          f"; largest other kernels highest {split['highest']['top_other']}"
+          f"; launches per step at high "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }")
+    print(f"[17 precision] two steps from phase 6's state: losses {two}; "
+          f"relative to highest {rel} (steps 1, 2)")
+    del state, model
+    torch.cuda.empty_cache()
+    return launches, dict(ms_per_step=ms, peak_gib=peak, device_ms=split,
+                          two_steps=two, rel_loss=rel)
+
+
+def _precision_serve(dev, card, sd, timing):
+    """Phase 17 (c): one 480x640 pose through ``serving.build_renderer`` at
+    highest and at high, same weights (phase 4's): eval rays/s, device ms
+    a chunk split into GEMMs and the rest, the pixel differences."""
+    import numpy as np
+    import torch
+
+    from evdeblurnerf_torch import kernels, serving
+    from evdeblurnerf_torch.train.evaluate import pose_rays
+    from evdeblurnerf_torch.utils.precision import set_matmul_precision
+
+    K = [[FOCAL, 0.0, W / 2], [0.0, FOCAL, H / 2], [0.0, 0.0, 1.0]]
+    pose = make_poses()[:1]
+    r = serving.build_renderer(argparse.Namespace(**SERVE_FLAGS), sd, H, W,
+                               K, NEAR, FAR, AABB, device=dev)
+    rays = pose_rays(pose, H, W, np.asarray(K), dev)[:CHUNK].contiguous()
+    out, rgbs = {}, {}
+    for name in ("highest", "high"):
+        set_matmul_precision(name)
+        r(rays)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rgb, depth = r.render_poses(pose)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = dict(eval_rays_per_s=H * W / secs,
+                         launches={k: v for k, v in kernels.LAUNCHES.items()
+                                   if v},
+                         **_gemm_split(timing, lambda: r(rays)))
+        check(bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all()),
+              f"non-finite render at --matmul_precision {name}")
+        for k in SERVE_KERNELS:
+            check(out[name]["launches"].get(k, 0) > 0, f"kernel {k} never "
+                  f"launched in the render at --matmul_precision {name}")
+        rgbs[name] = rgb
+    set_matmul_precision("highest")
+    diff = (rgbs["high"] - rgbs["highest"]).abs()
+    out["pixel_max_diff"] = float(diff.max())
+    out["pixel_p99_diff"] = float(torch.quantile(
+        diff.reshape(-1)[::7].float(), 0.99))
+    print(f"[17 precision] one {H}x{W} pose on {card}: highest "
+          f"{out['highest']['eval_rays_per_s']:.1f} eval rays/s, high "
+          f"{out['high']['eval_rays_per_s']:.1f}; device ms a chunk highest "
+          f"GEMMs {out['highest']['gemm_ms']:.2f} + rest "
+          f"{out['highest']['other_ms']:.2f}, high GEMMs "
+          f"{out['high']['gemm_ms']:.2f} + rest {out['high']['other_ms']:.2f}"
+          f"; rgb |high - highest| max {out['pixel_max_diff']:.3e}, p99 "
+          f"{out['pixel_p99_diff']:.3e}")
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_precision(dev, card, sd_serve, sd, crf_sd):
+    """Phase 17 (module docstring): returns the high step's launches and
+    the figures."""
+    timing = _load_tool("timing_torch")
+    readback = _precision_readback()
+    launches, step = _precision_step(dev, card, sd, crf_sd, timing)
+    serve = _precision_serve(dev, card, sd_serve, timing)
+    return launches, dict(readback=readback, step=step, serve=serve)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tools/preprocess_events_torch.py, tools/eval_cull_ab_torch.py
+# ---------------------------------------------------------------------------
+
+CULL_AB_TOL = 1e-6      # (b): an arm against the port's own render
+
+
+def _preprocess_events(tmp):
+    """Phase 18 (a): the sidecar of ``tools/preprocess_events_torch.py``
+    on phase 8's scene, read by phase 8's dataset in place of a scan."""
+    import numpy as np
+
+    from evdeblurnerf_torch import config
+    from evdeblurnerf_torch.data import events as devents
+    from evdeblurnerf_torch.ops import events_native
+    from evdeblurnerf_torch.train import loop as tloop
+
+    synth = _load_tool("synthetic_scene_torch")
+    tool = _load_tool("preprocess_events_torch")
+    scene = os.path.join(tmp, "scene")
+    os.makedirs(scene)
+    synth.write_scene(scene, train_args().events_threshold, SEED)
+    args = config.resolve_event_thresholds(config.parse_args(
+        ["--config", os.path.join(REPO, _bench_torch().PAPER_CONFIG),
+         "--datadir", scene]))
+    args.use_pts0_prior = None
+    t0 = time.perf_counter()
+    tool.main([scene, "--h", str(synth.SCENE_H), "--w", str(synth.SCENE_W),
+               "--events_tms_unit", args.events_tms_unit,
+               "--accumulate", "2", "--accumulate_at_time", "1"],
+              load_events=synth.load_npz_events)
+    tool_s = time.perf_counter() - t0
+    scans = []
+    scan = devents.compute_successor
+
+    def counted(ids):
+        scans.append(len(ids))
+        return scan(ids)
+
+    devents.compute_successor = counted
+    try:
+        t0 = time.perf_counter()
+        _, ev = tloop.build_datasets(args, *synth.scene_classes())
+        load_s = time.perf_counter() - t0
+    finally:
+        devents.compute_successor = scan
+    t0 = time.perf_counter()
+    succ, cnt, _, _ = events_native.compute_successor(ev.events[:, 0])
+    scan_s = time.perf_counter() - t0
+    with np.load(os.path.join(scene, "events_successor.npz")) as f:
+        n_events = int(f["n_events"])
+    print(f"[18 tools] tools/preprocess_events_torch.py on phase 8's scene "
+          f"({n_events} events after the pose-range filter) in {tool_s:.2f} "
+          f"s; the dataset read its sidecar ({len(scans)} scans) in "
+          f"{load_s:.2f} s; a fresh scan {scan_s:.3f} s")
+    check(not scans, f"the dataset scanned the stream {len(scans)} times "
+          "beside the sidecar")
+    check(n_events == ev.events.shape[0], f"sidecar of {n_events} events, "
+          f"stream of {ev.events.shape[0]}")
+    check(np.array_equal(ev.events[:, 3], succ)
+          and np.array_equal(ev.events_num_successors, cnt),
+          "the sidecar's successor graph differs from a fresh scan's")
+    return dict(tool_s=tool_s, load_s=load_s, scan_s=scan_s,
+                n_events=n_events)
+
+
+def _cull_ab(dev, tmp):
+    """Phase 18 (b): ``tools/eval_cull_ab_torch.py`` on the checkpoint of a
+    run of phase 12's validation size; returns the culled arm's
+    launches."""
+    from evdeblurnerf_torch.train import evaluate
+
+    vtt = _load_tool("validate_train_torch")
+    tool = _load_tool("eval_cull_ab_torch")
+    common = ["--profile", "small", "--scene", os.path.join(tmp, "vscene"),
+              "--logdir", tmp, "--expname", "cull_ab", "--device", str(dev)]
+    t0 = time.perf_counter()
+    vtt.main(["--iters", str(VALIDATE_ITERS), *common])
+    train_s = time.perf_counter() - t0
+    argv = ["--capacity", "0.25", *common]
+    out, renders = tool.compare(argv)
+    run = tool.restore(argv)
+    own = {}
+    for arm, cull in tool.ARMS:
+        rgbs, _ = evaluate.render_poses(
+            functools.partial(run.model.render_chunk, fine_cull=cull),
+            run.llff.test_poses, run.llff.h, run.llff.w, run.llff.K,
+            chunk=run.targs.chunk, device=run.device)
+        want = evaluate.apply_crf(run.crf, rgbs.cpu().numpy(), skip_learn_crf=(
+            run.step < run.targs.tone_mapping_start_learn_iter))
+        own[arm] = float(abs(renders[arm] - want).max())
+    print(f"[18 tools] tools/eval_cull_ab_torch.py at capacity "
+          f"{out['capacity']} on a {VALIDATE_ITERS}-iteration validation run "
+          f"(trained in {train_s:.1f} s): {json.dumps(out)}; each arm "
+          f"against render_chunk(fine_cull=...) of the restored checkpoint, "
+          f"max |diff| {own}")
+    for arm, _ in tool.ARMS:
+        check(math.isfinite(out[arm]["psnr"]) and out[arm]["render_s"] > 0,
+              f"the {arm} arm: {out[arm]}")
+        check(own[arm] <= CULL_AB_TOL, f"the {arm} arm differs from the "
+              f"port's render by {own[arm]}")
+        for k in SERVE_KERNELS:
+            check(out[arm]["launches"].get(k, 0) > 0,
+                  f"kernel {k} never launched in the {arm} arm")
+    return out["cull"]["launches"], dict(train_s=train_s, ab=out, own=own)
+
+
+def phase_tools(dev):
+    """Phase 18 (module docstring): returns the culled arm's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        events = _preprocess_events(tmp)
+        launches, ab = _cull_ab(dev, tmp)
+    return launches, dict(preprocess=events, cull_ab=ab)
+
+
 def main():
     try:
         import torch
@@ -3009,6 +3382,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    start = time.perf_counter()
     try:
         card = phase_environment()
         dev = torch.device("cuda", 0)
@@ -3038,6 +3412,13 @@ def main():
         export_launches, _ = phase_export(dev, card, sd_serve)
         parallel_launches, _ = phase_parallel(dev, card, sd, crf_sd,
                                               sd_serve, served)
+        print(f"[17 precision] script wall time before phases 17-18: "
+              f"{time.perf_counter() - start:.1f} s")
+        precision_launches, _ = phase_precision(dev, card, sd_serve, sd,
+                                                crf_sd)
+        cull_ab_launches, _ = phase_tools(dev)
+        print(f"[18 tools] script wall time after phases 17-18: "
+              f"{time.perf_counter() - start:.1f} s")
         del sd, crf_sd, sd_serve, served
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -3064,9 +3445,12 @@ def main():
     # served pose for the eval chain's form
     kernel_results.update(bf16_records)
     # the parallel paths: the launches of phase 16's compared steps, (b)
-    # and (c), summed over their ranks
+    # and (c), summed over their ranks; phase 17's TF32 step blocks and
+    # phase 18's culled A/B arm
     for name, r in kernel_results.items():
         r["launches_parallel"] = parallel_launches.get(name, 0)
+        r["launches_precision_high"] = precision_launches.get(name, 0)
+        r["launches_cull_ab"] = cull_ab_launches.get(name, 0)
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in
                                   kernel_results.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -33,11 +33,20 @@ What differs from the JAX package's table:
     port does not carry: its line gradients are the exact f32 ones.
   * ``--device`` (``cuda`` by default): the entry points run on the card
     unless the caller asks for ``cpu``.
+  * ``--matmul_precision`` sets the precision of the card's float32
+    products (``utils/precision.py``): ``highest`` is exact float32
+    (cuBLAS and cuDNN ``"ieee"``), ``high`` and ``default`` are TF32
+    (``"tf32"``). The JAX flag's ``default`` means bf16 passes on the TPU;
+    CUDA has no bf16 mode for float32 operands, and TF32 is what XLA takes
+    for float32 dots at JAX's default precision on an Ampere-or-later card.
+    The port defaults to ``highest`` (:data:`PORT_DEFAULTS`), the setting
+    every parity bound assumes, since a default that changes what a run
+    trains to moves only after a matched held-out screen. CPU products
+    stay exact under every setting.
   * Flags that steer TPU mechanisms (``compilation_cache_dir``,
-    ``matmul_precision``, ``remat``) stay accepted and are ignored;
-    ``tp_model_parallel`` and ``multihost`` drive the parallel paths
-    (``parallel/``), each rank on ``--device`` (``cuda`` is
-    ``cuda:<LOCAL_RANK>``).
+    ``remat``) stay accepted and are ignored; ``tp_model_parallel`` and
+    ``multihost`` drive the parallel paths (``parallel/``), each rank on
+    ``--device`` (``cuda`` is ``cuda:<LOCAL_RANK>``).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ PORT_DEFAULTS = {
     "triplane_line_matmul": False,
     "fine_cull_capacity": 0.0,
     "grad_accum": 1,
+    "matmul_precision": "highest",
 }
 
 # The full flag surface of ref: options.py (same names, types, defaults).
@@ -323,8 +333,8 @@ FLAG_SPEC = [
           help="microbatched gradient accumulation inside the step; cuts "
                "the activation peak 1/N with no recompute"),
     _bool("triplane_bf16", default=PORT_DEFAULTS["triplane_bf16"],
-          help="bf16 table rows in the forward pass. Not ported yet: True "
-               "raises"),
+          help="bf16 table rows in training and the bf16 eval chain in "
+               "renders that do not train (off in the port)"),
     _bool("triplane_line_matmul",
           default=PORT_DEFAULTS["triplane_line_matmul"],
           help="accepted for old command lines and ignored: the port's "
@@ -332,13 +342,16 @@ FLAG_SPEC = [
     _flag("compilation_cache_dir", str, "auto",
           help="accepted for old command lines and ignored: the port runs "
                "eagerly and has no compiled-program cache"),
-    _flag("matmul_precision", str, "default",
+    _flag("matmul_precision", str, PORT_DEFAULTS["matmul_precision"],
           choices=["default", "high", "highest"],
-          help="accepted for old command lines and ignored: the port's "
-               "float32 products always run in full float32 (TF32 off)"),
+          help="float32 products on the card: 'highest' exact float32 "
+               "(cuBLAS and cuDNN 'ieee', the port's default), 'high' and "
+               "'default' TF32 ('tf32'; CUDA has no bf16 mode for float32 "
+               "operands, and TF32 is what XLA takes at JAX's default "
+               "precision on such a card); CPU products stay exact"),
     _flag("profile_start_step", int, -1,
-          help="capture a trace starting at this step. Not ported yet: a "
-               "value >= 0 raises"),
+          help="capture a torch.profiler trace of --profile_num_steps "
+               "steps from this step (off below 0)"),
     _flag("profile_num_steps", int, 5),
     _flag("profile_dir", str, None,
           help="trace output dir (default <expdir>/profile)"),
@@ -603,8 +616,8 @@ def check_supported(args: Args) -> None:
     combination of ``--tp_model_parallel`` with multi-host training is
     refused by the loop, which knows the process group, as the JAX loop
     refuses it). Flags that only steer TPU mechanisms
-    (``compilation_cache_dir``, ``matmul_precision``, ``remat``,
-    ``triplane_line_matmul``) are accepted and ignored."""
+    (``compilation_cache_dir``, ``remat``, ``triplane_line_matmul``) are
+    accepted and ignored."""
     k = getattr(args, "tp_model_parallel", 1)
     if k is not None and k < 1:
         raise ValueError(f"--tp_model_parallel={k}: expected 1 or more "

@@ -51,7 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import (check_supported, eval_fine_cull,
+from ..config import (PORT_DEFAULTS, check_supported, eval_fine_cull,
                       resolve_event_thresholds, write_args_txt)
 from ..data import (ImageBatchSampler, LLFFDataset, LLFFEventsDataset,
                     Prefetcher, RandomEventSampler, RandomRaySampler, endless)
@@ -63,6 +63,7 @@ from ..utils.metrics import compute_img_metric, lpips_trunk_kind
 from ..utils.misc import (annealing_interpolator,
                           exponential_scale_fine_loss_weight, seed_everything,
                           to8b)
+from ..utils.precision import set_matmul_precision
 from . import state as tstate
 from .checkpoint import CheckpointManager
 from .evaluate import (apply_crf, depth_colormap, format_test_metrics,
@@ -118,7 +119,9 @@ def resolve_device(args) -> torch.device:
     CPU): ``cuda`` is this process's card, ``cuda:<LOCAL_RANK>``
     (``parallel/multihost.py::local_device``), an explicit ``cuda:N`` wins.
     A CUDA device that is not there raises: nothing carries on on the CPU
-    because it found no card."""
+    because it found no card. Sets the card's float32 products to
+    ``--matmul_precision`` (``utils/precision.py``; CPU products stay
+    exact)."""
     device = multihost.local_device(getattr(args, "device", None) or "cuda")
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -126,11 +129,10 @@ def resolve_device(args) -> torch.device:
                 f"--device {device} asked for, but torch.cuda.is_available() "
                 "is False; pass --device cpu to run on the CPU")
         torch.cuda.set_device(device)
-        # full float32 products, as every parity bound assumes
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     elif device.type != "cpu":
         raise ValueError(f"--device {device}: expected cuda, cuda:N or cpu")
+    set_matmul_precision(getattr(args, "matmul_precision",
+                                 PORT_DEFAULTS["matmul_precision"]))
     return device
 
 

@@ -37,6 +37,7 @@ from evdeblurnerf_torch.models.renderer import RenderConfig
 from evdeblurnerf_torch.models.system import EvDeblurNeRF
 from evdeblurnerf_torch.ops import (fused_sample, lane_shuffle, line_matmul,
                                    tiled_gather, triplane)
+from evdeblurnerf_torch.utils.precision import set_matmul_precision
 
 pytestmark = pytest.mark.cuda
 
@@ -45,8 +46,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision("highest")
     return torch.device("cuda", 0)
 
 

@@ -191,7 +191,8 @@ def test_unported_settings_raise_with_their_item(flags, item):
     loop refuses it naming its ROADMAP queue-1 item; a ported one
     (``item`` None: tensor-parallel tables, the multi-host launch, bf16
     tables) is accepted; flags that only steer TPU mechanisms are accepted
-    and ignored."""
+    and ignored, and ``--matmul_precision`` is accepted (it sets the
+    card's float32 products, ``tests/test_torch_precision.py``)."""
     if item is None:
         args = tconfig.default_args(**flags)
         tconfig.check_supported(args)
@@ -203,6 +204,14 @@ def test_unported_settings_raise_with_their_item(flags, item):
         compilation_cache_dir="none", matmul_precision="highest", remat=True,
         triplane_line_matmul=True, fine_cull_capacity=0.25,
         coarse_cull_capacity=0.5))
+
+
+def test_flag_help_names_nothing_unported():
+    """Every flag's help says what the port does with it: none says "Not
+    ported"."""
+    stale = [f.name for f in tconfig.FLAG_SPEC
+             if re.search(r"not ported", f.help, re.I)]
+    assert not stale
 
 
 def test_parse_and_loop_import_load_no_jax():

@@ -265,6 +265,7 @@ def main(argv=None) -> int:
     import torch
 
     from evdeblurnerf_torch.parallel import mesh, multihost
+    from evdeblurnerf_torch.utils.precision import set_matmul_precision
 
     multihost.initialize(device=a.device,
                          coordinator=f"localhost:{a.port}",
@@ -274,11 +275,11 @@ def main(argv=None) -> int:
         device = multihost.local_device(a.device)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         multihost.build_kernels(device)
         layout = mesh.create_layout(a.tp)
         setup = torch.load(a.setup, weights_only=False)
+        set_matmul_precision(getattr(setup.get("args"), "matmul_precision",
+                                     "highest"))
         out, record = run(setup, device, layout)
         # the ranks run the port alone
         record["jax_modules"] = sorted(

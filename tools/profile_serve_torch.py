@@ -38,15 +38,15 @@ def main(argv=None):
     from evdeblurnerf_torch.models.renderer import config_from_args
     from evdeblurnerf_torch.models.system import EvDeblurNeRF
     from evdeblurnerf_torch.train.evaluate import pose_rays
+    from evdeblurnerf_torch.utils.precision import set_matmul_precision
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve_torch: needs a CUDA card")
     dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     h, w, focal = bench_torch.H, bench_torch.W, bench_torch.FOCAL
     K = [[focal, 0.0, w / 2], [0.0, focal, h / 2], [0.0, 0.0, 1.0]]
     args = bench_torch.train_args(chunk=32768)
+    set_matmul_precision(args.matmul_precision)
     gen = torch.Generator(device=dev).manual_seed(bench_torch.SEED)
     model = EvDeblurNeRF(config_from_args(args, bench_torch.AABB, h, w, focal,
                                           bench_torch.NEAR, bench_torch.FAR),

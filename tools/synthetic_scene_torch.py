@@ -5,7 +5,9 @@ without an image or HDF5 library.
 layout (``poses_bounds.npy``, ``all_poses_bounds.npy``,
 ``all_timestamps.npy``, ``images_1/timestamps.npz``), the images and the
 events as ``.npz``; :func:`scene_classes` gives the two dataset subclasses
-that read those where ``evdeblurnerf_torch.data`` reads PNG and HDF5.
+that read those where ``evdeblurnerf_torch.data`` reads PNG and HDF5
+(:func:`load_npz_events` reads the events, also for
+``tools/preprocess_events_torch.py``).
 Everything after the read (pose recentering, the bounds, the successor
 graph, the EDI prior, the samplers) is the package's. The scene is a shaded
 ball before a faint gradient, seen from a camera that slides sideways; the
@@ -290,12 +292,21 @@ def write_synthetic_scene(basedir, n_imgs=6, h=96, w=128, focal=None,
     return int(ts.shape[0])
 
 
+def load_npz_events(basedir, h, w, events_tms_unit):
+    """The scene's ``events.npz`` as ``load_events_h5`` gives an
+    ``events.h5``: (events [N, 3], zero-event coord ids, id_to_coords)."""
+    from evdeblurnerf_torch.utils.events import compact_events
+
+    with np.load(os.path.join(basedir, "events.npz")) as f:
+        events = {k: f[k] for k in "xytp"}
+    return compact_events(events, h, w, None, True, events_tms_unit)
+
+
 def scene_classes():
     """The two dataset subclasses that read the scene's ``.npz`` files
     where the package reads PNG and HDF5; everything after the read is the
     package's."""
     from evdeblurnerf_torch.data import LLFFDataset, LLFFEventsDataset
-    from evdeblurnerf_torch.utils.events import compact_events
 
     class NpzLLFF(LLFFDataset):
         def load_images(self, imgfolder):
@@ -305,9 +316,7 @@ def scene_classes():
 
     class NpzEvents(LLFFEventsDataset):
         def load_events(self):
-            with np.load(os.path.join(self.basedir, "events.npz")) as f:
-                events = {k: f[k] for k in "xytp"}
-            return compact_events(events, self.h, self.w, None, True,
-                                  self.events_tms_unit)
+            return load_npz_events(self.basedir, self.h, self.w,
+                                   self.events_tms_unit)
 
     return NpzLLFF, NpzEvents
