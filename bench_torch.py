@@ -21,9 +21,13 @@ the bf16 eval chain); ``--matmul_precision high`` with the card's float32
 products in TF32 (``evdeblurnerf_torch/utils/precision.py``).
 Three readings:
 
-* ``step_only``: ``train/step.py`` on one fixed batch, 3 warm-up steps, then
-  ``iters`` steps between two CUDA events;
-* ``loop``: the same step through ``evdeblurnerf_torch.cli.main`` on the
+* ``step_only``: the captured training step (``train/capture.py``, what
+  the train loop runs on the card) on one fixed batch, 3 warm-up steps
+  (the first eager, the second captured), then ``iters`` steps between
+  two CUDA events; first the same for the eager step of ``train/step.py``
+  on the same state, printed on a line of its own and kept under
+  ``step_only.eager``;
+* ``loop``: the step through ``evdeblurnerf_torch.cli.main`` on the
   numpy scene of ``tools/synthetic_scene_torch.py`` (data, prefetch,
   schedules, every gate open): the time between CUDA events recorded after
   each step call, so host stalls count;
@@ -207,8 +211,8 @@ def loop_timings(tloop):
             return out
         return wrapper
 
-    def build_train_step(args, **kw):
-        step = timed(saved["build_train_step"](args, **kw), "step_call_s")
+    def build_loop_step(args, **kw):
+        step = timed(saved["build_loop_step"](args, **kw), "step_call_s")
 
         def marked(*a, **kw):
             out = step(*a, **kw)
@@ -219,13 +223,13 @@ def loop_timings(tloop):
         return marked
 
     names = ("build_datasets", "build_model", "build_initial_state",
-             "run_test_renders", "build_train_step")
+             "run_test_renders", "build_loop_step")
     saved = {n: getattr(tloop, n) for n in names}
     save = tloop.CheckpointManager.save
     try:
         for n in names[:-1]:
             setattr(tloop, n, timed(saved[n], f"{n}_s"))
-        tloop.build_train_step = build_train_step
+        tloop.build_loop_step = build_loop_step
         tloop.CheckpointManager.save = timed(save, "checkpoint_s")
         yield tm
     finally:
@@ -234,12 +238,49 @@ def loop_timings(tloop):
         tloop.CheckpointManager.save = save
 
 
-def bench_step_only(args, device, iters):
-    """``iters`` steps of ``train/step.py`` on one fixed batch after
-    ``WARMUP_STEPS`` steps."""
+def _time_steps(step, state, batch, ev_batch, sw_of, flags, device, iters):
+    """``WARMUP_STEPS`` then ``iters`` timed steps of ``step`` on one
+    batch: ms/step between CUDA events, the losses, the launches a timed
+    step and the peak over all of them."""
     import torch
 
     from evdeblurnerf_torch import kernels
+
+    def one():
+        # a captured step's metrics are overwritten by the next step
+        return step(state, batch, ev_batch, sw_of(state.step), False, True,
+                    **flags)["loss"].clone()
+
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    losses = [float(one()) for _ in range(WARMUP_STEPS)]
+    _sync(device)
+    kernels.reset_launches()
+    start = _Mark(device.type == "cuda")
+    timed = [one() for _ in range(iters)]
+    end = _Mark(device.type == "cuda")
+    _sync(device)
+    ms = start.ms_until(end) / iters
+    out = dict(ms_per_step=ms, iters=iters,
+               losses=losses + [float(v) for v in timed],
+               launches_per_step={k: v / iters
+                                  for k, v in kernels.LAUNCHES.items() if v})
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        out["peak_reserved_gib"] = (torch.cuda.max_memory_reserved(device)
+                                    / 2 ** 30)
+    return out
+
+
+def bench_step_only(args, device, iters):
+    """The eager step, then the captured step, on one state: each
+    ``iters`` steps on one fixed batch after ``WARMUP_STEPS`` (the
+    captured step's first is eager, its second captured). The eager
+    reading is printed on a line of its own and kept under ``eager``."""
+    import torch
+
+    from evdeblurnerf_torch.train import capture
     from evdeblurnerf_torch.train import state as tstate
     from evdeblurnerf_torch.train import step as tstep
 
@@ -247,43 +288,27 @@ def bench_step_only(args, device, iters):
     model, crf = tstate.build_model(args, AABB, H, W, FOCAL, NEAR, FAR,
                                     NUM_IMAGES, gen, device)
     state = tstate.create_train_state(model, crf, args, gen)
-    step = tstep.build_train_step(args)
     sw_of = tstep.schedule_weights_fn(args)
     batch, ev_batch = make_train_batch(device, args.N_rand,
                                        args.events_N_rand)
     n_rays = args.N_rand * args.kernel_ptnum + 2 * args.events_N_rand
-    fine_cull = (args.fine_cull_capacity or 0.0) > 0
-    coarse_cull = (args.coarse_cull_capacity or 0.0) > 0
-    occ_grid = None
-    if coarse_cull:
+    flags = dict(fine_cull=(args.fine_cull_capacity or 0.0) > 0,
+                 coarse_cull=(args.coarse_cull_capacity or 0.0) > 0)
+    if flags["coarse_cull"]:
         from evdeblurnerf_torch.models.system import build_occ_grid
 
-        occ_grid = build_occ_grid(model)
-
-    def one():
-        return step(state, batch, ev_batch, sw_of(state.step), False,
-                    True, fine_cull=fine_cull, coarse_cull=coarse_cull,
-                    occ_grid=occ_grid)["loss"]
-
-    losses = [float(one()) for _ in range(WARMUP_STEPS)]
-    _sync(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    kernels.reset_launches()
-    start = _Mark(device.type == "cuda")
-    timed = [one() for _ in range(iters)]
-    end = _Mark(device.type == "cuda")
-    _sync(device)
-    ms = start.ms_until(end) / iters
-    losses += [float(v) for v in timed]
-    out = dict(
-        ms_per_step=ms, train_rays_per_s=n_rays / (ms / 1e3),
-        rays_per_step=n_rays, iters=iters, losses=losses,
-        launches_per_step={k: v / iters
-                           for k, v in kernels.LAUNCHES.items() if v})
-    if device.type == "cuda":
-        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    return out
+        flags["occ_grid"] = build_occ_grid(model)
+    readings = {}
+    for name, step in (("eager", tstep.build_train_step(args)),
+                       ("captured", capture.CapturedStep(args))):
+        r = readings[name] = _time_steps(step, state, batch, ev_batch,
+                                         sw_of, flags, device, iters)
+        r.update(train_rays_per_s=n_rays / (r["ms_per_step"] / 1e3),
+                 rays_per_step=n_rays)
+    eager = readings["eager"]
+    print(f"step_only eager: {eager['ms_per_step']:.3f} ms/step, "
+          f"{eager['train_rays_per_s']:.1f} train rays/s", flush=True)
+    return dict(readings["captured"], eager=eager)
 
 
 def bench_loop(overrides, device, iters):

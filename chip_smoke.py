@@ -110,9 +110,10 @@ kernel and case, phase 8 a few):
     grids. Then one DSK step with ``kernel_align_weight 0.1`` and a
     non-zero align term, and one PBE step at a small size on the card and
     on the CPU from one state dict, losses within 1e-5 relative;
-11. ``bench_torch.run()`` for ``step_only`` with 5 timed steps: its ms/step
-    within 5% of phase 6's (a reading beyond that is taken again, three
-    times in all: the step follows the shared host);
+11. ``bench_torch.run()`` for ``step_only`` with 5 timed steps: its eager
+    reading's ms/step within 5% of phase 6's (a reading beyond that is
+    taken again, three times in all: the step follows the shared host),
+    its captured reading (the step the loop runs) printed beside it;
 12. the vanilla-NeRF field (``mode=nerf``) and what came with it: 2 warm-up
     and 5 timed training steps at the reference's NeRF width (8 x 256
     coarse and fine MLPs, the paper configuration's RBK with 5 rays a
@@ -213,7 +214,26 @@ kernel and case, phase 8 a few):
     each within 1e-6 of ``render_chunk(fine_cull=...)`` of the restored
     checkpoint, K1, K3 and K4 launched in both (``launches_cull_ab``: the
     culled arm's). The script's wall time is printed before and after
-    these two phases.
+    these two phases;
+19. the captured training step (``train/capture.py``): (a) from phase 6's
+    state and one generator state, 12 paper steps across the key change
+    (the blur kernel's and the learned CRF's start brought to step 5), the
+    eager step twice and the captured step: per-step loss within
+    ``max(4 x spread, 1e-4)`` relative of the eager step's, spread being
+    the two eager runs' difference (K5's atomics), the parameters after
+    the window at phase 7's gradient limits, two graphs, the peak with
+    both held; (b) one more replay under ``torch.profiler``: the launches
+    of K1-K6 on the device by kernel name equal the eager step's counted
+    launches, the graph's captured counts and what the replay adds to
+    ``LAUNCHES`` (``launches_captured``: (a)'s captured run); (c) the
+    exact, culled and bf16 paper steps, eager and captured on one state in
+    turns: ms/step and peak; (d) DSK, PBE, ``mode=nerf`` and
+    ``grad_accum 2`` at a small width, captured (one graph) or named eager
+    by ``train/capture.py::EAGER``, 4 losses within phase 7's loss limit
+    of the eager step's; (e) ``cli.main`` at the validation tool's small
+    profile across the same key change with a checkpoint, then resumed:
+    both keys captured, the resumed run's key captured again, the loss
+    finite and falling.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1762,26 +1782,32 @@ def phase_pbe(dev, card):
 
 
 def phase_bench_torch(step_only):
-    """Phase 11: ``bench_torch.run()`` for ``step_only``, against phase
-    6's time for the same step. The step is bound by the host's dispatch
-    and the host's cores are shared, so a reading beyond the bound is taken
+    """Phase 11: ``bench_torch.run()`` for ``step_only``: its eager
+    reading against phase 6's time for the same (eager) step, its captured
+    reading beside it. The eager step is bound by the host's dispatch and
+    the host's cores are shared, so a reading beyond the bound is taken
     again, ``BENCH_STEP_TRIES`` times in all; every reading is printed."""
     want = 1e3 * step_only["seconds"] / TRAIN_STEPS
     readings = []
     for _ in range(BENCH_STEP_TRIES):
         result = _bench_torch().run(iters=TRAIN_STEPS, only="step_only")
-        readings.append(result["step_only"]["ms_per_step"])
+        readings.append(result["step_only"]["eager"]["ms_per_step"])
         rel = abs(readings[-1] - want) / want
         if rel <= BENCH_STEP_TOL:
             break
-    print(f"[11 bench_torch] step_only {readings[-1]:.1f} ms/step, "
-          f"{result['step_only']['train_rays_per_s']:.1f} train rays/s, peak "
-          f"{result['step_only']['peak_gib']:.2f} GiB on {result['card']} "
+    got = result["step_only"]
+    print(f"[11 bench_torch] step_only eager {readings[-1]:.1f} ms/step, "
+          f"{got['eager']['train_rays_per_s']:.1f} train rays/s, peak "
+          f"{got['eager']['peak_gib']:.2f} GiB on {result['card']} "
           f"(phase 6: {want:.1f} ms/step; differ by {100 * rel:.1f}%; "
-          f"readings {[round(v, 1) for v in readings]})")
-    check(rel <= BENCH_STEP_TOL, f"bench_torch's step_only readings "
+          f"readings {[round(v, 1) for v in readings]}); captured "
+          f"{got['ms_per_step']:.1f} ms/step, {got['train_rays_per_s']:.1f} "
+          f"train rays/s, peak {got['peak_gib']:.2f} GiB")
+    check(rel <= BENCH_STEP_TOL, f"bench_torch's eager step_only readings "
           f"{readings} ms are not within {100 * BENCH_STEP_TOL:.0f}% of "
           f"phase 6's {want:.1f}")
+    check(all(math.isfinite(v) for v in got["losses"]),
+          f"bench_torch's captured losses {got['losses']}")
     return result
 
 
@@ -3365,6 +3391,333 @@ def phase_tools(dev):
     return launches, dict(preprocess=events, cull_ab=ab)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the captured training step (train/capture.py)
+# ---------------------------------------------------------------------------
+# (a): from phase 6's weights, across the key change of the paper
+# configuration (the blur kernel's and the learned CRF's start, 1200 in the
+# file) brought to step 5
+CAPTURE_GATES = dict(kernel_start_iter=5, tone_mapping_start_learn_iter=5)
+CAPTURE_STEPS = 12
+# (b): the kernels' names on the device and the counters they launch under
+KERNEL_NAMES = (
+    (("permute_lanes_vec", "permute_lanes_scalar"),
+     ("permute_lanes", "permute_lanes_bwd")),
+    (("permute_lanes_3d",), ("permute_lanes_3d", "permute_lanes_3d_bwd")),
+    (("cdf_take",), ("cdf_take",)),
+    (("triplane_fwd",), ("triplane_features", "triplane_features_bf16",
+                         "triplane_features_bf16_compute")),
+    (("triplane_bwd",), ("triplane_features_bwd",
+                         "triplane_features_bwd_bf16")),
+    (("line_grad",), ("line_grad",)),
+)
+# (d): the other blur kernels, the NeRF field and microbatches, at
+# bench_torch.py's TINY width
+CAPTURE_VARIANTS = {
+    "DSK": dict(kernel_type="DSK", kernel_use_awp=False),
+    "PBE": dict(kernel_type="PBE", kernel_use_awp=False, kernel_hwindow=10),
+    "mode=nerf": dict(mode="nerf", netdepth=2, netwidth=32, netdepth_fine=2,
+                      netwidth_fine=32),
+    "grad_accum 2": dict(grad_accum=2),
+}
+CAPTURE_SMALL_STEPS = 4
+# (e): cli.main at the validation tool's small profile, then resumed
+CAPTURE_RUN_ITERS = (16, 24)
+CAPTURE_RUN_FLAGS = dict(kernel_start_iter=6, tone_mapping_start_learn_iter=6,
+                         i_weights=8, i_tensorboard=1, i_print=100)
+
+
+def _device_kernel_counts(fn):
+    """Launches of ``fn`` on the device by kernel, from a ``torch.profiler``
+    trace: ``{counter names: count}`` over :data:`KERNEL_NAMES`."""
+    acts = _load_tool("timing_torch")._device_activities(fn, 1)
+    return ({counters: sum(1 for n, _ in acts if any(k in n for k in names))
+             for names, counters in KERNEL_NAMES}, len(acts))
+
+
+def _grouped(launches):
+    return {counters: sum(launches.get(c, 0) for c in counters)
+            for _, counters in KERNEL_NAMES}
+
+
+def _param_share(a, b):
+    """The share of all parameter elements of ``b`` beyond
+    ``TRAIN_GRAD_TOL`` of their parameter's largest magnitude in ``a``
+    (phase 7's aggregate over the gradients, here over the weights)."""
+    total = beyond = 0
+    for n, x in a.items():
+        scale = max(float(x.abs().max()), 1e-12)
+        beyond += int(((b[n] - x).abs() > TRAIN_GRAD_TOL * scale).sum())
+        total += x.numel()
+    return beyond / total
+
+
+def _capture_window(dev, card, sd, crf_sd):
+    """Phase 19 (a), (b): the eager step twice and the captured step from
+    phase 6's state and one generator state over ``CAPTURE_STEPS`` steps
+    across the key change; then one replay under the profiler. Returns
+    the captured run's launches."""
+    import torch
+
+    from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.train import capture
+    from evdeblurnerf_torch.train import step as tstep
+
+    args = train_args(**CAPTURE_GATES)
+    batch, ev_batch = make_train_batch(dev, args.N_rand, args.events_N_rand)
+    sw_of = tstep.schedule_weights_fn(args)
+    out = {}
+    for run in ("eager", "eager again", "captured"):
+        model, state = _sd_state(args, dev, sd, crf_sd)
+        captured = run == "captured"
+        step = (capture.CapturedStep(args) if captured
+                else tstep.build_train_step(args))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, last = [], None
+        for i in range(CAPTURE_STEPS):
+            if i == CAPTURE_STEPS - 1:
+                last = dict(kernels.LAUNCHES)
+            losses.append(step(state, batch, ev_batch, sw_of(i),
+                               i < args.kernel_start_iter, True)["loss"]
+                          .clone())
+        torch.cuda.synchronize()
+        r = out[run] = dict(
+            losses=[float(v) for v in losses],
+            launches=dict(kernels.LAUNCHES),
+            last_step={k: kernels.LAUNCHES[k] - last[k] for k in last},
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30,
+            params={n: p.detach().clone() for n, p in
+                    [*model.named_parameters(),
+                     *((f"crf.{n}", p) for n, p in
+                       state.crf.named_parameters())]})
+        if captured:
+            r["keys"] = list(step.graphs)
+            key = capture.step_key(sw_of(CAPTURE_STEPS), False, True)
+            r["delta"] = step.graphs[key].launches
+            before = dict(kernels.LAUNCHES)
+            r["profiled"], r["activities"] = _device_kernel_counts(
+                lambda: step(state, batch, ev_batch, sw_of(state.step),
+                             False, True))
+            r["replay_launches"] = {k: kernels.LAUNCHES[k] - before[k]
+                                    for k in before}
+        del model, state, step
+        torch.cuda.empty_cache()
+    a, b, c = out["eager"], out["eager again"], out["captured"]
+    rel = lambda x, y: [abs(p - q) / abs(q) for p, q in zip(x, y)]  # noqa
+    spread = max(rel(b["losses"], a["losses"]))
+    got = max(rel(c["losses"], a["losses"]))
+    bound = max(4 * spread, 1e-4)
+    share = _param_share(a["params"], c["params"])
+    share_eager = _param_share(a["params"], b["params"])
+    eager_step = _grouped(a["last_step"])
+    profiled = c["profiled"]
+    delta = _grouped(c["delta"])
+    per_replay = _grouped(c["replay_launches"])
+    names = {cs: cs[0] for _, cs in KERNEL_NAMES}
+    print(f"[19 capture] (a) paper step from phase 6's state, "
+          f"{CAPTURE_STEPS} steps across the key change at step "
+          f"{args.kernel_start_iter} on {card}: losses eager "
+          f"{[round(v, 6) for v in a['losses']]}, captured "
+          f"{[round(v, 6) for v in c['losses']]}; largest per-step relative "
+          f"difference captured {got:.3e}, eager twice {spread:.3e} (bound "
+          f"{bound:.1e}); share of parameter elements beyond "
+          f"{TRAIN_GRAD_TOL} of their parameter's largest: captured "
+          f"{share:.2e}, eager twice {share_eager:.2e} "
+          f"(bound {TRAIN_GRAD_MAX_SHARE}); graphs {c['keys']}; peak with "
+          f"both graphs held {c['peak_gib']:.2f} GiB allocated, "
+          f"{c['peak_reserved_gib']:.2f} GiB reserved (eager "
+          f"{a['peak_gib']:.2f}, {a['peak_reserved_gib']:.2f})")
+    print(f"[19 capture] (b) one replay under the profiler: kernels by name "
+          f"{ {names[k]: v for k, v in profiled.items()} } of "
+          f"{c['activities']} device activities; the eager step's launches "
+          f"{ {names[k]: v for k, v in eager_step.items()} }; the graph's "
+          f"counts {c['delta']}, added by the replay "
+          f"{ {names[k]: v for k, v in per_replay.items()} }")
+    check(all(math.isfinite(v) for r in out.values() for v in r["losses"]),
+          "non-finite loss in the capture window")
+    check(len(c["keys"]) == 2, f"graphs {c['keys']}, expected 2 keys")
+    check(got <= bound, f"captured losses {got:.3e} from the eager ones, "
+          f"bound {bound:.1e}")
+    check(share <= TRAIN_GRAD_MAX_SHARE, f"parameters after the window: "
+          f"{share:.2e} of elements beyond {TRAIN_GRAD_TOL}")
+    check(profiled == eager_step == delta == per_replay,
+          f"kernel launches of one replay on the device {profiled}, of the "
+          f"eager step {eager_step}, of the graph {delta}, counted by the "
+          f"replay {per_replay}")
+    for name in kernels.TRAIN_KERNELS:
+        check(c["launches"].get(name, 0) > 0 and c["delta"].get(name, 0) > 0,
+              f"kernel {name} not launched inside the captured step")
+    return c["launches"], dict(rel=got, spread=spread, param_share=share,
+                               peak_gib=c["peak_gib"],
+                               peak_reserved_gib=c["peak_reserved_gib"])
+
+
+def _capture_turns(dev, card, sd, crf_sd):
+    """Phase 19 (c): the exact, culled and bf16 paper steps, eager and
+    captured on one state each, in turns (eager, captured, captured,
+    eager) of ``TRAIN_STEPS`` steps."""
+    import torch
+
+    from evdeblurnerf_torch.models.system import build_occ_grid
+    from evdeblurnerf_torch.train import capture
+    from evdeblurnerf_torch.train import step as tstep
+
+    out = {}
+    for label, flags in (("exact", {}), ("culled", CULL_FLAGS),
+                         ("bf16", dict(triplane_bf16=True))):
+        args = train_args(**flags)
+        model, state = _sd_state(args, dev, sd, crf_sd)
+        batch, ev_batch = make_train_batch(dev, args.N_rand,
+                                           args.events_N_rand)
+        sw_of = tstep.schedule_weights_fn(args)
+        kw = {}
+        if label == "culled":
+            kw = dict(fine_cull=True, coarse_cull=True,
+                      occ_grid=build_occ_grid(model))
+        steps = dict(eager=tstep.build_train_step(args),
+                     captured=capture.CapturedStep(args))
+
+        def block(name, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                loss = steps[name](state, batch, ev_batch,
+                                   sw_of(state.step), False, True,
+                                   **kw)["loss"]
+            torch.cuda.synchronize()
+            check(math.isfinite(float(loss)), f"{label} {name}: loss {loss}")
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        torch.cuda.reset_peak_memory_stats()
+        for name in steps:
+            block(name, TRAIN_WARMUP)
+        ms = {n: [] for n in steps}
+        for name in ("eager", "captured", "captured", "eager"):
+            ms[name].append(block(name, TRAIN_STEPS))
+        out[label] = dict(ms=ms, peak_gib=torch.cuda.max_memory_allocated()
+                          / 2**30)
+        del model, state, steps
+        torch.cuda.empty_cache()
+    print(f"[19 capture] (c) in turns on one state, {TRAIN_STEPS} steps a "
+          f"block, ms/step on {card}: "
+          + "; ".join(f"{k} eager {[round(v, 2) for v in r['ms']['eager']]} "
+                      f"captured {[round(v, 2) for v in r['ms']['captured']]}"
+                      f" (peak {r['peak_gib']:.2f} GiB)"
+                      for k, r in out.items()))
+    return out
+
+
+def _capture_variants(dev):
+    """Phase 19 (d): DSK, PBE, ``mode=nerf`` and two microbatches, small:
+    captured (or named eager by ``train/capture.py::EAGER``), their losses
+    against the eager step's from one state."""
+    import torch
+
+    from evdeblurnerf_torch.train import capture
+    from evdeblurnerf_torch.train import state as tstate
+    from evdeblurnerf_torch.train import step as tstep
+
+    out = {}
+    for label, flags in CAPTURE_VARIANTS.items():
+        args = train_args(**_bench_torch().TINY, **flags)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model, crf = tstate.build_model(args, AABB, H, W, FOCAL, NEAR, FAR,
+                                        NUM_IMAGES, gen, dev)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        crf_sd = {k: v.clone() for k, v in crf.state_dict().items()}
+        batch, ev_batch = make_train_batch(dev, args.N_rand,
+                                           args.events_N_rand)
+        sw_of = tstep.schedule_weights_fn(args)
+        losses, graphs = {}, None
+        for name in ("eager", "captured"):
+            model, state = _sd_state(args, dev, sd, crf_sd)
+            step = (capture.CapturedStep(args) if name == "captured"
+                    else tstep.build_train_step(args))
+            losses[name] = [float(step(state, batch, ev_batch,
+                                       sw_of(state.step), False, True)
+                                  ["loss"])
+                            for _ in range(CAPTURE_SMALL_STEPS)]
+            if name == "captured":
+                graphs = len(step.graphs)
+        reason = capture.eager_reason(args)
+        rel = max(abs(a - b) / abs(a) for a, b in
+                  zip(losses["eager"], losses["captured"]))
+        out[label] = dict(graphs=graphs, eager_reason=reason, rel=rel)
+        check(reason is not None or graphs == 1,
+              f"{label}: {graphs} graphs and no eager entry")
+        check(rel <= TRAIN_LOSS_TOL, f"{label}: captured losses "
+              f"{losses['captured']} against eager {losses['eager']}")
+    print(f"[19 capture] (d) small steps, {CAPTURE_SMALL_STEPS} each, "
+          f"captured against eager from one state: "
+          + "; ".join(f"{k}: " + (f"eager by the table ({r['eager_reason']})"
+                                  if r["eager_reason"] else
+                                  f"{r['graphs']} graph, loss rel "
+                                  f"{r['rel']:.2e}")
+                      for k, r in out.items()))
+    return out
+
+
+def _capture_run(dev, tmp):
+    """Phase 19 (e): ``cli.main`` at the validation tool's small profile:
+    a run that captures both keys and checkpoints, then its resumption,
+    which captures again; the loss finite and falling."""
+    from evdeblurnerf_torch.train import loop as tloop
+
+    vtt = _load_tool("validate_train_torch")
+    sst = _load_tool("synthetic_scene_torch")
+    scene = os.path.join(tmp, "capscene")
+    sst.write_synthetic_scene(scene)
+    made = []
+    build = tloop.build_loop_step
+
+    def recording(*a, **kw):
+        made.append(build(*a, **kw))
+        return made[-1]
+
+    tloop.build_loop_step = recording
+    try:
+        for iters in CAPTURE_RUN_ITERS:
+            argv = ["--iters", str(iters), "--profile", "small", "--scene",
+                    scene, "--logdir", tmp, "--expname", "capture",
+                    "--device", str(dev)]
+            for k, v in CAPTURE_RUN_FLAGS.items():
+                argv += [f"--{k}", str(v)]
+            vtt.main(argv)
+    finally:
+        tloop.build_loop_step = build
+    stream, _ = _metric_stream(os.path.join(tmp, "capture", "metrics.jsonl"))
+    losses = [v for _, v in stream.get("train/loss", [])]
+    steps = [s for s, _ in stream.get("train/loss", [])]
+    graphs = [sorted(s.graphs) for s in made]
+    head, tail = losses[:4], losses[-4:]
+    print(f"[19 capture] (e) cli.main {CAPTURE_RUN_ITERS[0]} steps, then "
+          f"resumed to {CAPTURE_RUN_ITERS[1]}: graphs of each run {graphs}; "
+          f"losses {[round(v, 5) for v in losses]}")
+    check(steps == list(range(CAPTURE_RUN_ITERS[1])),
+          f"logged steps {steps}")
+    check(len(graphs) == 2 and len(graphs[0]) == 2 and len(graphs[1]) == 1,
+          f"graphs of the two runs {graphs}: expected both keys, then the "
+          "resumed run's one")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(sum(tail) < sum(head), f"the loss did not fall: {losses}")
+    return dict(losses=losses, graphs=graphs)
+
+
+def phase_capture(dev, card, sd, crf_sd):
+    """Phase 19 (module docstring). Returns the launches of (a)'s captured
+    run."""
+    launches, window = _capture_window(dev, card, sd, crf_sd)
+    turns = _capture_turns(dev, card, sd, crf_sd)
+    variants = _capture_variants(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = _capture_run(dev, tmp)
+    return launches, dict(window=window, turns=turns, variants=variants,
+                          run=run)
+
+
 def main():
     try:
         import torch
@@ -3419,6 +3772,9 @@ def main():
         cull_ab_launches, _ = phase_tools(dev)
         print(f"[18 tools] script wall time after phases 17-18: "
               f"{time.perf_counter() - start:.1f} s")
+        capture_launches, _ = phase_capture(dev, card, sd, crf_sd)
+        print(f"[19 capture] script wall time after phase 19: "
+              f"{time.perf_counter() - start:.1f} s")
         del sd, crf_sd, sd_serve, served
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -3446,11 +3802,13 @@ def main():
     kernel_results.update(bf16_records)
     # the parallel paths: the launches of phase 16's compared steps, (b)
     # and (c), summed over their ranks; phase 17's TF32 step blocks and
-    # phase 18's culled A/B arm
+    # phase 18's culled A/B arm; phase 19's captured window (the kernels
+    # launched inside its graphs, counted at each replay)
     for name, r in kernel_results.items():
         r["launches_parallel"] = parallel_launches.get(name, 0)
         r["launches_precision_high"] = precision_launches.get(name, 0)
         r["launches_cull_ab"] = cull_ab_launches.get(name, 0)
+        r["launches_captured"] = capture_launches.get(name, 0)
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in
                                   kernel_results.items()]}))
     print(json.dumps({"ok": True, "device": {

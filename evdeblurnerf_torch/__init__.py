@@ -4,7 +4,9 @@ A second package beside the JAX one, which stays the reference it is held
 against. Ported so far: the eval/serving render of the c2f PDRF model
 (``serving.build_renderer`` -> ``models.system.EvDeblurNeRF.render_chunk``),
 the paper's training step (``train.state.create_train_state`` ->
-``train.step.build_train_step``) and the training run around it
+``train.step.build_train_step``, on the card replayed from one CUDA graph
+per gate key by ``train.capture.CapturedStep``) and the training run
+around it
 (``cli.main`` -> ``train.loop.train``: datasets, prefetch, schedules,
 checkpoints, held-out renders with LPIPS, resume, render-only, the
 ``torch.profiler`` trace window; data-parallel, multi-host and over

@@ -25,6 +25,10 @@ The wrapper asks :func:`wants_kernel`:
 :data:`LAUNCHES` counts the launches of each kernel, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` zeroes the
 counts with :func:`reset_launches` before it renders and reads them after).
+A replayed CUDA graph runs no Python: the captured training step
+(``train/capture.py``) takes the counts its capture added as the graph's
+own (:func:`take_launches`, a capture launches nothing) and adds them at
+each replay (:func:`add_launches`).
 The render path's kernels (K1's forward, K3, K4 in its three table
 types) are also custom ops of the dispatcher, ``evdn::<name>``
 (:func:`custom_op`): each launches its kernel or runs its plain twin as
@@ -67,6 +71,22 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+
+
+def take_launches(before: dict) -> dict:
+    """The counts added since ``before`` (a copy of :data:`LAUNCHES`),
+    taken back out of :data:`LAUNCHES`: a capture's launches, which ran
+    nothing."""
+    delta = {k: LAUNCHES[k] - before[k] for k in KERNELS
+             if LAUNCHES[k] != before[k]}
+    LAUNCHES.update(before)
+    return delta
+
+
+def add_launches(delta: dict) -> None:
+    """Count one replay of a graph whose capture took ``delta``."""
+    for name, n in delta.items():
+        LAUNCHES[name] += n
 
 
 def wants_kernel(*tensors: torch.Tensor) -> bool:

@@ -289,6 +289,14 @@ class Renderer(nn.Module):
                 if field is not None:
                     field.refresh_tables()
 
+    def repack_tables(self) -> None:
+        """Repack the voxel fields' tables in place, unconditionally
+        (``VoxelNeRF.repack_tables``: the captured training step's)."""
+        if self.cfg.mode == "c2f":
+            for field in (self.mlp_coarse, self.mlp_fine):
+                if field is not None:
+                    field.repack_tables()
+
     def freeze_tables(self) -> None:
         """Freeze the voxel fields' packed tables and drop their raw grids
         (``VoxelNeRF.freeze_tables``): a renderer that only renders, as an

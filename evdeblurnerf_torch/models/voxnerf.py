@@ -147,22 +147,39 @@ class VoxelNeRF(nn.Module):
     def _grid_versions(self):
         return tuple(p._version for p in (*self.app_plane, *self.app_line))
 
+    def _packed(self):
+        return ([getattr(self, f"packed_plane_{i}", None) for i in range(3)],
+                [getattr(self, f"packed_line_{i}", None) for i in range(3)])
+
     @torch.no_grad()
     def pack_tables(self) -> None:
         """Neighbour-pack the grids into the tables :meth:`sample` reads and
         record the grids' versions. At the paper width this is one pass
         over ~0.5 GB (the fine 64-component plane packs to ~375 MB), half
-        that with bf16 tables, whose grids are cast before packing."""
+        that with bf16 tables, whose grids are rounded as they are packed.
+        Tables of the right shapes and type are written in place, so they
+        keep their addresses (a captured training step reads them there,
+        ``train/capture.py``); others (the first packing, another table
+        type, sliced grids) are made anew."""
         planes, lines = self.grids()
-        if self.table_bf16:
-            planes = [p.to(torch.bfloat16) for p in planes]
-            lines = [l.to(torch.bfloat16) for l in lines]
-        planes, lines, sizes = triplane.pack_grids(planes, lines)
-        for i in range(3):
-            self.register_buffer(f"packed_plane_{i}", planes[i],
-                                 persistent=False)
-            self.register_buffer(f"packed_line_{i}", lines[i],
-                                 persistent=False)
+        dtype = torch.bfloat16 if self.table_bf16 else torch.float32
+        shapes = ([(p.shape[1] * p.shape[2], 4 * p.shape[0])
+                   for p in planes], [(l.shape[1], 2 * l.shape[0])
+                                      for l in lines])
+        old = self._packed()
+        if all(t is not None and t.dtype == dtype and tuple(t.shape) == s
+               for ts, ss in zip(old, shapes) for t, s in zip(ts, ss)):
+            _, _, sizes = triplane.pack_grids(planes, lines, out=old)
+        else:
+            if self.table_bf16:
+                planes = [p.to(torch.bfloat16) for p in planes]
+                lines = [l.to(torch.bfloat16) for l in lines]
+            planes, lines, sizes = triplane.pack_grids(planes, lines)
+            for i in range(3):
+                self.register_buffer(f"packed_plane_{i}", planes[i],
+                                     persistent=False)
+                self.register_buffer(f"packed_line_{i}", lines[i],
+                                     persistent=False)
         self.table_sizes = sizes
         self._packed_versions = self._grid_versions()
 
@@ -172,6 +189,12 @@ class VoxelNeRF(nn.Module):
         if self.tables_frozen:
             return
         if self._grid_versions() != self._packed_versions:
+            self.pack_tables()
+
+    def repack_tables(self) -> None:
+        """Repack in place whatever the grids' versions say: the captured
+        training step's repack, which a replay runs with no host check."""
+        if not self.tables_frozen:
             self.pack_tables()
 
     def freeze_tables(self) -> None:

@@ -24,14 +24,14 @@ def unit_linspace(n: int, device=None) -> torch.Tensor:
     from a true division) by an ulp at many positions — enough to shift
     every stratified depth and flip a ``searchsorted`` bin. The stratified
     depths and the deterministic draws of :func:`sample_pdf` use this form
-    so that the port and the JAX package sample the same depths.
+    so that the port and the JAX package sample the same depths. Made on
+    ``device`` with no copy from the host (a captured step may make it).
     """
     if n == 1:
         return torch.zeros(1, dtype=torch.float32, device=device)
-    recip = np.float32(1) / np.float32(n - 1)
-    t = np.arange(n - 1, dtype=np.float32) * recip
-    t = np.concatenate([t, np.ones(1, np.float32)])
-    return torch.from_numpy(t).to(device)
+    recip = float(np.float32(1) / np.float32(n - 1))
+    t = torch.arange(n - 1, dtype=torch.float32, device=device) * recip
+    return torch.cat([t, torch.ones(1, dtype=torch.float32, device=device)])
 
 
 def searchsorted_right(sorted_seq: torch.Tensor,

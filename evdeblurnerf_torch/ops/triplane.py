@@ -112,14 +112,50 @@ def pack_line(line: torch.Tensor) -> torch.Tensor:
     return torch.cat([p, p1], -1)
 
 
-def pack_grids(planes: Sequence[torch.Tensor], lines: Sequence[torch.Tensor]):
+def pack_plane_into(out: torch.Tensor, plane: torch.Tensor) -> None:
+    """:func:`pack_plane` of ``plane`` [C, H, W] written into ``out``
+    [H*W, 4C] (f32, or bf16: each value rounded as ``.to()`` rounds it)."""
+    C, H, W = plane.shape
+    p = plane.permute(1, 2, 0)                                   # [H, W, C]
+    o = out.view(H, W, 4, C)
+    o[:, :, 0] = p
+    o[:, :W - 1, 1] = p[:, 1:]
+    o[:, W - 1, 1] = 0
+    o[:H - 1, :, 2] = p[1:]
+    o[H - 1, :, 2] = 0
+    o[:H - 1, :W - 1, 3] = p[1:, 1:]
+    o[H - 1, :, 3] = 0
+    o[:, W - 1, 3] = 0
+
+
+def pack_line_into(out: torch.Tensor, line: torch.Tensor) -> None:
+    """:func:`pack_line` of ``line`` [C, D] written into ``out`` [D, 2C]."""
+    C, D = line.shape
+    p = line.T                                                       # [D, C]
+    o = out.view(D, 2, C)
+    o[:, 0] = p
+    o[:D - 1, 1] = p[1:]
+    o[D - 1, 1] = 0
+
+
+def pack_grids(planes: Sequence[torch.Tensor], lines: Sequence[torch.Tensor],
+               out=None):
     """Pack the three planes and lines; returns (packed_planes, packed_lines,
-    sizes) with ``sizes[i] = (H_i, W_i, D_i)``."""
-    packed_planes = [pack_plane(p).contiguous() for p in planes]
-    packed_lines = [pack_line(l).contiguous() for l in lines]
+    sizes) with ``sizes[i] = (H_i, W_i, D_i)``. ``out``: (packed_planes,
+    packed_lines) of those shapes to pack into, in place (what a captured
+    training step replays: its tables keep their addresses); their dtype
+    is the tables' (bf16 tables take each value rounded)."""
     sizes = tuple((int(planes[i].shape[1]), int(planes[i].shape[2]),
                    int(lines[i].shape[1])) for i in range(3))
-    return packed_planes, packed_lines, sizes
+    if out is None:
+        packed_planes = [pack_plane(p).contiguous() for p in planes]
+        packed_lines = [pack_line(l).contiguous() for l in lines]
+        return packed_planes, packed_lines, sizes
+    for dst, p in zip(out[0], planes):
+        pack_plane_into(dst, p)
+    for dst, l in zip(out[1], lines):
+        pack_line_into(dst, l)
+    return list(out[0]), list(out[1]), sizes
 
 
 class _RoundBF16(torch.autograd.Function):

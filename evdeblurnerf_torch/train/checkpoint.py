@@ -33,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from .optim import load_optimizer_state
+
 _NAME = re.compile(r"^(\d+)\.tar$")
 
 
@@ -42,11 +44,22 @@ def checkpoint_dict(state, wandb_id: Optional[str] = None) -> dict:
         "global_step": int(state.step),
         "network_state_dict": _to_cpu(dict(state.model.state_dict())),
         "crf_state_dict": _to_cpu(dict(state.crf.state_dict())),
-        "optimizer_state_dict": _to_cpu(state.optimizer.state_dict()),
+        "optimizer_state_dict": optimizer_state_dict(state.optimizer),
         "wandb_id": wandb_id,
         "generator_state": state.generator.get_state().clone(),
         "generator_device": state.generator.device.type,
     }
+
+
+def optimizer_state_dict(optimizer) -> dict:
+    """The optimizer's state as the reference stores it: tensors on the
+    CPU (a capturable Adam's step counts come off the card) and each
+    group's learning rate a float (a device scalar on the card)."""
+    sd = _to_cpu(optimizer.state_dict())
+    for group in sd["param_groups"]:
+        if torch.is_tensor(group["lr"]):
+            group["lr"] = float(group["lr"])
+    return sd
 
 
 def _to_cpu(obj):
@@ -65,7 +78,7 @@ def load_into_state(ckpt: dict, state) -> int:
     state.model.load_state_dict(ckpt["network_state_dict"], strict=True)
     state.crf.load_state_dict(ckpt.get("crf_state_dict", {}), strict=True)
     if ckpt.get("optimizer_state_dict") is not None:
-        state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+        load_optimizer_state(state.optimizer, ckpt["optimizer_state_dict"])
     gen_state = ckpt.get("generator_state")
     if gen_state is not None:
         if ckpt.get("generator_device") == state.generator.device.type:

@@ -35,6 +35,10 @@ tables gathered first) and the PNGs; a barrier follows each.
 Tensor parallelism across hosts is refused before the dataset is built,
 as in the JAX package.
 
+On the card each step of a one-process run replays a CUDA graph of the
+step, one per gate key (``train/capture.py``, the counterpart of the JAX
+package's jitted step); under a process group the step runs eagerly.
+
 Dropped against the JAX loop, as TPU mechanism: the shardings of the
 device mesh and the compiled-program cache.
 """
@@ -68,7 +72,8 @@ from . import state as tstate
 from .checkpoint import CheckpointManager
 from .evaluate import (apply_crf, depth_colormap, format_test_metrics,
                        render_poses)
-from .step import build_train_step, compute_schedule_weights
+from .capture import build_loop_step
+from .step import compute_schedule_weights
 
 
 # the name of the profiler range around each step (a no-op without a
@@ -134,6 +139,20 @@ def resolve_device(args) -> torch.device:
     set_matmul_precision(getattr(args, "matmul_precision",
                                  PORT_DEFAULTS["matmul_precision"]))
     return device
+
+
+def step_gates(args, i: int):
+    """(force_naive, events_active, fine_cull, coarse_cull) of step ``i``
+    as the loop sets them; the coarse cull also waits for its occupancy
+    grid's gate, which the loop reads at each refresh."""
+    events = bool(args.use_events and args.add_event_egm)
+    return (i < args.kernel_start_iter,
+            events and (args.add_event_egm_startiter is None
+                        or i >= args.add_event_egm_startiter),
+            (args.fine_cull_capacity or 0) > 0
+            and i >= args.fine_cull_start_iter,
+            (args.coarse_cull_capacity or 0) > 0 and args.mode == "c2f"
+            and i >= args.coarse_cull_start_iter)
 
 
 def build_datasets(args, llff_cls=LLFFDataset, events_cls=LLFFEventsDataset):
@@ -401,7 +420,7 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
             0.0, 1.0, kernel_end_warmup_iter, args.kernel_start_warmup_mode,
             start_step=args.kernel_start_iter)
 
-    step_fn = build_train_step(args, layout=layout)
+    step_fn = build_loop_step(args, layout=layout)
 
     # prefetch pipelines; the numpy samplers restart from the seed on
     # resume, as in the JAX package; every rank assembles the global batch
@@ -420,7 +439,6 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
 
     # the occupancy coarse cull: the grid is built at the cull's start and
     # refreshed on its cadence; the gate decides at each refresh
-    occ_cull = (args.coarse_cull_capacity or 0) > 0 and args.mode == "c2f"
     occ_grid = None
     occ_engaged = False
 
@@ -434,10 +452,8 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
     try:
         for i in range(start, N_iters):
             is_last = i == N_iters - 1
-            force_naive = i < args.kernel_start_iter
-            fine_cull = ((args.fine_cull_capacity or 0) > 0
-                         and i >= args.fine_cull_start_iter)
-            coarse_cull = occ_cull and i >= args.coarse_cull_start_iter
+            force_naive, events_active, fine_cull, coarse_cull = \
+                step_gates(args, i)
             if coarse_cull and (occ_grid is None
                                 or (i - args.coarse_cull_start_iter)
                                 % args.occ_refresh_every == 0):
@@ -451,10 +467,6 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
                                 "train/coarse_cull_active":
                                     float(occ_engaged)}, i)
             coarse_cull = coarse_cull and occ_engaged
-            events_active = bool(
-                args.add_event_egm and ev_prefetch is not None
-                and (args.add_event_egm_startiter is None
-                     or i >= args.add_event_egm_startiter))
 
             batch = next(img_prefetch)
             ev_batch = next(ev_prefetch) if events_active else None
@@ -494,7 +506,9 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
             if i % args.i_tensorboard == 0 or is_last:
                 scalars = {f"train/{k}": float(v) for k, v in aux.items()
                            if torch.is_tensor(v) and v.dim() == 0}
-                scalars["train/lr"] = state.optimizer.param_groups[0]["lr"]
+                # the rate step i took (on the card Adam reads a float32
+                # copy of it from the device)
+                scalars["train/lr"] = state.lr_schedule(i)
                 logger.scalars(scalars, i)
 
             if (i % args.i_weights == 0 and i > 0) or is_last:

@@ -14,6 +14,15 @@ emulates exactly this. So gradients are zeroed with ``set_to_none=True``:
 a parameter group outside the graph (the learned CRF before its learn
 start, the blur kernel before the kernel start) must keep ``grad=None``, or
 its first real step would take a later bias correction.
+
+On the card Adam is ``capturable``: its step counts live on the device and
+each group's learning rate is a device scalar that :func:`set_lr` fills
+before the step, so a CUDA graph of the step (``train/capture.py``) reads
+the rate and the counts of each replay. Lazy state is still torch's, made
+inside ``step()``: a graph captured before a parameter's first gradient
+would re-zero its moments at every replay, so a step is captured only
+after the same step ran once eagerly. On the CPU Adam is torch's default
+with a float rate.
 """
 
 from __future__ import annotations
@@ -56,9 +65,37 @@ def build_optimizer(named_params: Iterable, lrate: float,
     if decay:
         groups.append({"params": decay,
                        "weight_decay": float(colornet_weightdecay)})
-    return torch.optim.Adam(groups, lr=lrate, betas=(0.9, 0.999), eps=1e-8)
+    device = rest[0].device if rest else decay[0].device
+    on_card = device.type == "cuda"
+    optimizer = torch.optim.Adam(groups, lr=lrate, betas=(0.9, 0.999),
+                                 eps=1e-8, capturable=on_card)
+    if on_card:
+        for group in optimizer.param_groups:
+            group["lr"] = torch.tensor(float(lrate), device=device)
+    return optimizer
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate to ``lr``: a device scalar is filled in
+    place (on its stream, before the step that reads it)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         saved: dict) -> None:
+    """``optimizer.load_state_dict(saved)`` keeping this process's
+    ``capturable`` setting and device learning rates, whatever device the
+    state was saved from: torch then puts the step counts where this
+    optimizer keeps them (on the card for a capturable Adam)."""
+    lrs = [group["lr"] for group in optimizer.param_groups]
+    groups = [dict(s, capturable=g["capturable"])
+              for s, g in zip(saved["param_groups"], optimizer.param_groups)]
+    optimizer.load_state_dict(dict(saved, param_groups=groups))
+    for group, lr in zip(optimizer.param_groups, lrs):
+        if torch.is_tensor(lr):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr

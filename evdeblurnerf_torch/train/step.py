@@ -2,8 +2,11 @@
 backward and the Adam update.
 
 Counterpart of ``evdeblurnerf_tpu/train/step.py`` (ref: run_nerf.py:
-423-613). The schedule gates arrive as plain Python floats and bools in
-:class:`ScheduleWeights`; the unified loss is the JAX package's:
+423-613). The schedule gates arrive in :class:`ScheduleWeights`, as plain
+Python floats and bools, or with the floats as views of one device tensor
+(:func:`on_device`, the traced ``ScheduleWeights`` of the JAX step; the
+captured step of ``train/capture.py`` reads them so); the unified loss is
+the JAX package's:
 
     loss  = w_img * img_loss                       (ref :451-458)
     loss  = loss * cf + ff * awp_fine_loss         (ref :463-473)
@@ -98,6 +101,30 @@ class ScheduleWeights:
     color_weight: Tuple[float, float, float] = (1.0, 1.0, 1.0)
 
 
+# the float fields of ScheduleWeights in the order of their device tensor
+# (on_device); color_weight's three values follow
+SCHEDULE_FLOATS = ("w_img", "loss_a", "w_pts0", "cf", "ff", "w_align",
+                   "w_egm")
+
+
+def schedule_values(sw: ScheduleWeights) -> list:
+    """The float fields of ``sw`` in the order of :func:`on_device`."""
+    return ([float(getattr(sw, n)) for n in SCHEDULE_FLOATS]
+            + [float(c) for c in sw.color_weight])
+
+
+def on_device(sw: ScheduleWeights, values: torch.Tensor) -> ScheduleWeights:
+    """``sw`` with each float field a 0-d view of ``values`` (float32,
+    holding :func:`schedule_values` of a step) and ``color_weight`` a [3]
+    view: a step that reads them reads whatever ``values`` holds when it
+    runs. The two booleans stay Python values: they pick what the step
+    computes, so the captured step keys its graphs by them."""
+    n = len(SCHEDULE_FLOATS)
+    return dataclasses.replace(
+        sw, color_weight=values[n:n + 3],
+        **{name: values[k] for k, name in enumerate(SCHEDULE_FLOATS)})
+
+
 def compute_schedule_weights(args, i: int, *, kernel_end_warmup_iter: int,
                              w_kernel, w_pts0_target, w_events_egm,
                              fine_loss_weight: float,
@@ -168,7 +195,11 @@ def build_train_step(args, return_grads: bool = False,
 
     ``layout``: the process layout (``parallel/mesh.py``); the batches
     are then this rank's rows (``mesh.shard_batch``), and the step is the
-    one-process step on the global batch, its metrics the global ones."""
+    one-process step on the global batch, its metrics the global ones.
+
+    ``step.update`` is the step's device work alone (everything but the
+    learning rate's setting, the tables' repack and the host's step
+    count), which ``train/capture.py`` captures."""
     tv_weight = float(args.kernel_tv_loss_weight)
     thresh_neg = float(args.events_threshold_neg
                        if args.events_threshold_neg is not None
@@ -298,9 +329,15 @@ def build_train_step(args, return_grads: bool = False,
         aux["loss"] = loss
         return loss, aux
 
-    def step(state, batch, ev_batch, sw: ScheduleWeights, force_naive: bool,
-             events_active: bool, fine_cull: bool = False,
-             coarse_cull: bool = False, occ_grid=None):
+    def update(state, batch, ev_batch, sw: ScheduleWeights,
+               force_naive: bool, events_active: bool,
+               fine_cull: bool = False, coarse_cull: bool = False,
+               occ_grid=None):
+        """Forward and backward over the microbatches, the gradient norms,
+        the clip and the Adam step at the rate already set, all of it work
+        on the device: no host read, no host-side count. The step of
+        :func:`build_train_step` and the captured step
+        (``train/capture.py``) both run it."""
         model, crf = state.model, state.crf
         culls = dict(fine_cull=fine_cull, coarse_cull=coarse_cull,
                      occ_grid=occ_grid if coarse_cull else None)
@@ -356,11 +393,19 @@ def build_train_step(args, return_grads: bool = False,
             for g in nerf:
                 g.mul_(scale)
             aux["grad_norm"] = gnorm
-        set_lr(state.optimizer, state.lr_schedule(state.step))
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
-        model.refresh_tables()
+        return aux
+
+    def step(state, batch, ev_batch, sw: ScheduleWeights, force_naive: bool,
+             events_active: bool, fine_cull: bool = False,
+             coarse_cull: bool = False, occ_grid=None):
+        set_lr(state.optimizer, state.lr_schedule(state.step))
+        aux = update(state, batch, ev_batch, sw, force_naive, events_active,
+                     fine_cull, coarse_cull, occ_grid)
+        state.model.refresh_tables()
         state.step += 1
         return aux
 
+    step.update = update
     return step

@@ -5,7 +5,9 @@
 Usage:
     python run_nerf_torch.py --config configs/<exp>.txt [--flag value ...]
 
-Trains on the first CUDA device, checkpoints to
+Trains on the first CUDA device, each step a replay of the captured
+training step (one CUDA graph per gate key, ``train/capture.py``),
+checkpoints to
 ``<basedir>/<expname>/checkpoints/{step:06d}.tar``, resumes from the newest
 one, renders the held-out views at the ``--i_testset`` cadence, and with
 ``--render_only`` renders from the newest checkpoint. ``--device cpu``

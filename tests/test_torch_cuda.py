@@ -27,6 +27,11 @@ operation rounds) must equal their twins bitwise in the vector and the
 scalar kernel; K5's bf16 form is held to K5's 1e-5 against the twin's
 exact f32 backward; K6's "default" precision (the cotangent rounded to
 bf16) to K6's 1e-5 against its twin.
+
+The captured training step (``train/capture.py``), on a tiny paper step:
+its replays equal the eager step within K5's 1e-5, its tables are
+repacked in place, and Adam's state is made by the eager first step,
+outside the capture.
 """
 
 import pytest
@@ -822,3 +827,112 @@ def test_line_grad_default_precision_matches_plain(dev, D, W, n):
     assert float((exact - want).abs().max()) > tol
     with pytest.raises(ValueError, match="precision"):
         line_matmul.line_grad(idx, rows, D, precision="high")
+
+
+# ---------------------------------------------------------------------------
+# the captured training step (train/capture.py): one graph per key
+# ---------------------------------------------------------------------------
+
+CAPTURE_STEPS = 5
+
+
+def _tiny_capture_run(dev, captured):
+    """``CAPTURE_STEPS`` tiny deterministic paper steps (no jitter, no
+    sigma noise) from one seeded state on the card, through the eager step
+    or the captured one: (state, step, losses, the packed tables' and
+    Adam states' addresses after the first step)."""
+    import chip_smoke
+
+    from evdeblurnerf_torch.train import capture
+    from evdeblurnerf_torch.train import state as tstate
+    from evdeblurnerf_torch.train import step as tstep
+
+    args = chip_smoke.train_args(
+        coarse_n_voxels=4096, fine_n_voxels=8192,
+        coarse_app_n_comp=[8, 4, 4], fine_app_n_comp=[8, 4, 4],
+        coarse_hidden_dim=16, coarse_hidden_dim_color=16, fine_hidden_dim=32,
+        fine_hidden_dim_color=32, fine_geo_feat_dim=16, N_samples=16,
+        N_importance=16, perturb=0.0, raw_noise_std=0.0)
+    model, crf = tstate.build_model(
+        args, ((-1.6, -1.7, -1.0), (1.7, 1.6, 1.0)), 48, 64, 50.0, 0.0, 1.0,
+        30, torch.Generator(device=dev).manual_seed(0), dev)
+    state = tstate.create_train_state(
+        model, crf, args, torch.Generator(device=dev).manual_seed(1),
+        crf_identity_prefit=False)
+    step = (capture.CapturedStep(args) if captured
+            else tstep.build_train_step(args))
+    sw = tstep.schedule_weights_fn(args)
+    batch, ev = chip_smoke.make_train_batch(dev, 32, 16)
+    losses, ptrs = [], None
+    for i in range(CAPTURE_STEPS):
+        losses.append(float(step(state, batch, ev, sw(i), False,
+                                 True)["loss"]))
+        if i == 0:
+            ptrs = _capture_addresses(state)
+    return state, step, losses, ptrs
+
+
+def _capture_addresses(state):
+    tables = [t.data_ptr() for f in (state.model.mlp_coarse,
+                                     state.model.mlp_fine)
+              for t in (*f._packed()[0], *f._packed()[1])]
+    adam = {id(p): [v.data_ptr() for v in st.values()]
+            for p, st in state.optimizer.state.items()}
+    return tables, adam
+
+
+def _weights_beyond(a, b):
+    """The share of all model weights of ``b`` beyond 1e-3 of their
+    parameter's largest magnitude in ``a``."""
+    total = beyond = 0
+    with torch.no_grad():
+        for p, q in zip(b.model.parameters(), a.model.parameters()):
+            scale = max(float(q.abs().max()), 1e-6)
+            beyond += int(((p - q).abs() > 1e-3 * scale).sum())
+            total += q.numel()
+    return beyond / total
+
+
+def test_captured_step_replay_equals_eager(dev):
+    """The captured step (an eager warm-up, a capture replayed once, then
+    replays) against the eager step from one state: per-step loss within
+    1e-5 relative (K5's atomics), one graph; the weights' share beyond
+    1e-3 of their parameter's largest within max(1%, 4 x that of two
+    eager runs): Adam's first steps move a weight by about the rate
+    whatever the size of its gradient, so the atomics' last bits reach
+    some weights whole, in two eager runs as well."""
+    eager, _, want, _ = _tiny_capture_run(dev, False)
+    again, _, _, _ = _tiny_capture_run(dev, False)
+    state, step, got, _ = _tiny_capture_run(dev, True)
+    assert len(step.graphs) == 1
+    torch.testing.assert_close(torch.tensor(got), torch.tensor(want),
+                               rtol=1e-5, atol=1e-7)
+    spread = _weights_beyond(eager, again)
+    assert _weights_beyond(eager, state) <= max(0.01, 4 * spread), spread
+
+
+def test_captured_step_repacks_tables_in_place(dev):
+    """After the replays the packed tables sit where the first step left
+    them and hold a fresh pack of the trained grids, bitwise."""
+    state, _, _, (tables, _) = _tiny_capture_run(dev, True)
+    now, _ = _capture_addresses(state)
+    assert now == tables
+    for field in (state.model.mlp_coarse, state.model.mlp_fine):
+        planes, lines, _ = triplane.pack_grids(*field.grids())
+        for t, want in zip((*field._packed()[0], *field._packed()[1]),
+                           (*planes, *lines)):
+            assert torch.equal(t, want)
+
+
+def test_captured_step_makes_adam_state_outside_capture(dev):
+    """Adam's state is made by the eager first step and kept: the same
+    tensors after the capture and the replays, each count at the number of
+    steps (a state made inside the capture would be zeroed by every
+    replay and count one)."""
+    state, _, _, (_, adam) = _tiny_capture_run(dev, True)
+    _, now = _capture_addresses(state)
+    assert now == adam and len(adam) > 10
+    for st in state.optimizer.state.values():
+        assert int(st["step"]) == CAPTURE_STEPS
+        assert st["step"].device.type == "cuda"
+        assert float(st["exp_avg_sq"].abs().max()) > 0
