@@ -32,8 +32,12 @@ Three readings:
   schedules, every gate open): the time between CUDA events recorded after
   each step call, so host stalls count;
 * ``serve``: one 480 x 640 pose through ``serving.build_renderer`` and
-  ``render_poses`` in chunks of 32,768 rays, after a one-chunk warm-up; and
-  one chunk's device time split by kernel name (``torch.profiler``).
+  ``render_poses`` in chunks of 32,768 rays, each chunk replaying the
+  renderer's CUDA graph (``train/evaluate.py::build_chunk_renderer``),
+  after the renderer was warmed to that graph; first the same pose
+  rendered eagerly on the same renderer, printed on a line of its own and
+  kept under ``serve.eager``; and each reading's chunk device time split
+  by kernel name (``torch.profiler``).
 
 It prints one JSON line: train rays/s and ms/step for step and loop, the
 host share (loop against step), eval rays/s, peak GiB, kernel launches a
@@ -367,14 +371,17 @@ def bench_loop(overrides, device, iters):
 
 def bench_serve(args, device, h, w, focal):
     """One ``h`` x ``w`` pose through ``serving.build_renderer`` and
-    ``render_poses`` on seeded random weights, after a one-chunk
-    warm-up."""
+    ``render_poses`` on seeded random weights: eagerly, then through the
+    renderer's captured chunk (``train/evaluate.py::build_chunk_renderer``,
+    what a served pose runs on the card), both on one renderer warmed to
+    its held graph first. The eager reading is kept under ``eager``."""
     import numpy as np
     import torch
 
     from evdeblurnerf_torch import kernels, serving
     from evdeblurnerf_torch.models.renderer import config_from_args
     from evdeblurnerf_torch.models.system import EvDeblurNeRF
+    from evdeblurnerf_torch.train import evaluate
 
     K = [[focal, 0.0, w / 2], [0.0, focal, h / 2], [0.0, 0.0, 1.0]]
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -386,36 +393,42 @@ def bench_serve(args, device, h, w, focal):
                                       device=device)
     pose = np.concatenate([np.eye(3), np.zeros((3, 1))], 1)[None].astype(
         np.float32)
-    warm = torch.zeros(args.chunk, 3, 2, device=device)
-    warm[:, 2, 1] = -1.0
-    renderer(warm)
-    _sync(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    rgbs, depths = renderer.render_poses(pose)
-    _sync(device)
-    secs = time.perf_counter() - t0
-    if not bool(torch.isfinite(rgbs).all() and torch.isfinite(depths).all()):
-        raise RuntimeError("non-finite render output")
-    out = dict(eval_rays_per_s=h * w / secs, seconds=secs, rays=h * w,
-               chunk=args.chunk,
-               launches={k: v for k, v in kernels.LAUNCHES.items() if v})
-    if device.type == "cuda":
-        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
-        # one chunk's device time, split by the hand-written kernels' names
-        # (K4, K1, K3); "other" is PyTorch's own kernels
-        from evdeblurnerf_torch.train.evaluate import pose_rays
-
-        rays = pose_rays(pose, h, w, np.asarray(K), device)[:args.chunk] \
-            .contiguous()
-        out["device_ms_per_chunk"] = _load_tool(
-            "timing_torch").device_ms_by_name(
-                lambda: renderer(rays),
-                ("triplane_fwd", "permute_lanes", "cdf_take"), iters=3,
-                warmup=1)
-    return out
+    rays = evaluate.pose_rays(pose, h, w, np.asarray(K), device)[
+        :args.chunk].contiguous()
+    renderer.warm()
+    readings = {}
+    for name, chunk_fn in (("eager", renderer.eager), ("captured", renderer)):
+        _sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rgbs, depths = evaluate.render_poses(chunk_fn, pose, h, w, K,
+                                             chunk=args.chunk, device=device)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        if not bool(torch.isfinite(rgbs).all()
+                    and torch.isfinite(depths).all()):
+            raise RuntimeError(f"non-finite {name} render output")
+        out = readings[name] = dict(
+            eval_rays_per_s=h * w / secs, seconds=secs, rays=h * w,
+            chunk=args.chunk,
+            launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+        if device.type == "cuda":
+            out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+            # the graph's pool is reserved, not allocated, between replays
+            out["reserved_gib"] = torch.cuda.memory_reserved(device) / 2**30
+            # one chunk's device time, split by the hand-written kernels'
+            # names (K4, K1, K3); "other" is PyTorch's own kernels
+            out["device_ms_per_chunk"] = _load_tool(
+                "timing_torch").device_ms_by_name(
+                    lambda: chunk_fn(rays),
+                    ("triplane_fwd", "permute_lanes", "cdf_take"), iters=3,
+                    warmup=1)
+    eager = readings["eager"]
+    print(f"serve eager: {eager['eval_rays_per_s']:.1f} eval rays/s",
+          flush=True)
+    return dict(readings["captured"], eager=eager)
 
 
 def _commit():

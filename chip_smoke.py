@@ -68,9 +68,11 @@ kernel and case, phase 8 a few):
 4. the serving path at the paper width (the model of ``bench.py``: 64+64
    samples, 16.8M/134M-voxel grids, app_n_comp (64, 16, 16), fine width
    256): seeded random weights saved as a reference ``*.tar``, loaded
-   through ``serving.build_renderer``, one 480x640 pose rendered through
-   ``render_poses`` in chunks of 32,768 rays; outputs finite, rgb in
-   [0, 1], depth in [near, far]; every eval kernel launched;
+   through ``serving.build_renderer``, warmed to its held CUDA graph
+   (``train/evaluate.py::build_chunk_renderer``), one 480x640 pose
+   rendered through ``render_poses`` in chunks of 32,768 rays, each a
+   replay; outputs finite, rgb in [0, 1], depth in [near, far]; every
+   eval kernel launched;
 5. card against CPU on the same weights: 1,024 rays rendered through the
    kernels on the card and through the plain versions on the CPU;
 6. the training path at full width: the paper's full method
@@ -171,9 +173,10 @@ kernel and case, phase 8 a few):
     that imports no module of ``evdeblurnerf_torch.models`` and renders
     one chunk through the kernels, held against the live renderer on the
     same rays (at most 1% of rays beyond 1e-5, the rest printed), one
-    480x640 pose through the artifact and the live renderer in turns
-    (eval rays/s), the file's size, load and first-call seconds, and the
-    line of ``tools/bench_serving_torch.py``;
+    480x640 pose through the artifact and the live renderer in turns, both
+    warmed to their held graphs (eval rays/s), the file's size, load and
+    first-call seconds, and the line of ``tools/bench_serving_torch.py``;
+    with the artifact loaded, phase 20's artifact readings are taken;
 16. the parallel paths (``evdeblurnerf_torch/parallel``): (a)
     ``cli.main`` at phase 8's settings for 8 steps, twice plainly and
     once as rank 0 of a world of 1 under torchrun's variables, which joins
@@ -233,7 +236,28 @@ kernel and case, phase 8 a few):
     of the eager step's; (e) ``cli.main`` at the validation tool's small
     profile across the same key change with a checkpoint, then resumed:
     both keys captured, the resumed run's key captured again, the loss
-    finite and falling.
+    finite and falling;
+20. the captured render (``train/capture.py::CapturedCall``): (a) one
+    480x640 pose of phase 4's serve model, captured against eager in this
+    process, for the exact renderer, ``--fine_cull_eval`` at capacity 0.25,
+    the bf16 eval chain and TF32 (``--matmul_precision high``), and phase
+    15's artifact against its own eager program: bitwise, or at most 1%
+    of rays beyond 1e-5, the largest |d rgb| and |d depth| printed; (b)
+    ``cli.main`` at the paper width on phase 8's scene, 8 steps with
+    testset renders at steps 4 and 7 and captured training replays
+    between: one chunk renderer, one capture, the second render against
+    an eager render of the final weights at (a)'s bound, its
+    ``test_metrics.txt`` line against that render's metrics, the reserved
+    peak with the step's and the render's pools held under 70 GB; (c) one
+    replay of the exact chunk under ``torch.profiler``: K1, K3 and K4 by
+    kernel name equal the eager chunk's counted launches, the graph's
+    counts and what the replay adds to ``LAUNCHES``; (d) eval rays/s of
+    each renderer in turns (eager, captured, captured, eager), each
+    chunk's device ms split by kernel name and the device busy share, and
+    the artifact's latency p50/p99 a chunk in the same turns; (e) the
+    occupancy refresh (``train/loop.py::build_occ_refresh``) captured:
+    its grid bitwise ``build_occ_grid``'s, one K4 launch a replay.
+    ``launches_render_captured``: (a)'s captured exact pose.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1085,10 +1109,9 @@ def phase_serving(dev, card):
                                       device=dev)
     poses = make_poses()[:1]
 
-    # warm-up: one chunk, so the timed run holds no first-call set-up
-    warm = torch.zeros(CHUNK, 3, 2, device=dev)
-    warm[:, 2, 1] = -1.0
-    renderer(warm)
+    # warm-up to the held graph (the eager first chunk, then the capture),
+    # so the timed run holds no first-call set-up
+    renderer.warm()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1098,6 +1121,8 @@ def phase_serving(dev, card):
     secs = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the graph's pool is reserved, not allocated, between replays
+    reserved_gib = torch.cuda.memory_reserved() / 2**30
     n_rays = len(poses) * H * W
     check(tuple(rgbs.shape) == (len(poses), H, W, 3)
           and tuple(depths.shape) == (len(poses), H, W),
@@ -1116,7 +1141,8 @@ def phase_serving(dev, card):
     rate = n_rays / secs
     print(f"[4 serve] {len(poses)} pose {H}x{W} ({n_rays} rays, chunk "
           f"{CHUNK}) in {secs:.3f} s = {rate:.1f} eval rays/s on {card}; "
-          f"peak {peak_gib:.2f} GiB; launches {launches}; depth "
+          f"peak {peak_gib:.2f} GiB allocated, {reserved_gib:.2f} GiB "
+          f"reserved with the graph's pool; launches {launches}; depth "
           f"[{float(depths.min()):.4f}, {float(depths.max()):.4f}]")
     return renderer, loaded, launches, dict(rays_per_s=rate, seconds=secs,
                                             peak_gib=peak_gib,
@@ -1885,7 +1911,7 @@ def _nerf_serve(dev, args, sd):
     renderer = serving.build_renderer(args, sd, H, W, K, NEAR, FAR, AABB,
                                       device=dev)
     rays = pose_rays(make_poses()[:1], H, W, K, dev)[:CHUNK]
-    renderer(rays)
+    renderer.warm()
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2459,9 +2485,7 @@ def _bf16_serve(dev, card, sd):
                                    device=dev)
         check(r.model.mlp_fine.eval_bf16(False) is bf16,
               f"the {name} renderer's eval chain")
-        warm = torch.zeros(CHUNK, 3, 2, device=dev)
-        warm[:, 2, 1] = -1.0
-        r(warm)
+        r.warm()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -2600,9 +2624,10 @@ def phase_export(dev, card, sd):
           f"{beyond:.4f} of the artifact's rays differ from the live "
           f"renderer's by more than {EXPORT_TOL}")
     # a whole pose through the artifact (in this process) and the live
-    # renderer, in turns
+    # renderer, in turns, each warmed to its held graph
     r = serving.load_renderer(path)
-    r(rays)
+    r.warm()
+    live.warm()
     rates = {"artifact": [], "live": []}
     kernels.reset_launches()
     launches = None
@@ -2617,6 +2642,7 @@ def phase_export(dev, card, sd):
             launches = dict(kernels.LAUNCHES)
         kernels.reset_launches()
         del rgbs
+    captured = _artifact_capture(r, pose, K)
     del r, live
     torch.cuda.empty_cache()
     bench = subprocess.run(
@@ -2641,7 +2667,32 @@ def phase_export(dev, card, sd):
           f"{json.dumps(bench_line)}")
     return launches, dict(bytes=size, export_s=export_s, fresh=fresh,
                           exact=exact, max_abs_diff=float(diff.max()),
-                          rates=rates, bench=bench_line)
+                          rates=rates, bench=bench_line, capture=captured)
+
+
+def _artifact_capture(r, pose, K):
+    """Phase 20 (a), (d) for the artifact, taken in phase 15 where it is
+    loaded: one pose through its graph against its own eager program, then
+    the latency of a chunk, p50 and p99 over ``ARTIFACT_CALLS`` chunks, in
+    turns (eager, captured, captured, eager)."""
+    import torch
+
+    from evdeblurnerf_torch.train import evaluate
+
+    tool = _load_tool("bench_serving_torch")
+    agree = _ray_agreement(
+        r.render_poses(pose),
+        evaluate.render_poses(r.eager, pose, H, W, K, chunk=CHUNK,
+                              device=r.device))
+    _check_agreement("the artifact", agree)
+    rays = torch.from_numpy(tool.make_rays(r.chunk)).to(r.device)
+    p50, p99 = {"eager": [], "captured": []}, {"eager": [], "captured": []}
+    for name in ("eager", "captured", "captured", "eager"):
+        got = tool.readings(r.eager if name == "eager" else r, rays,
+                            ARTIFACT_CALLS, 4, torch.cuda.synchronize)
+        p50[name].append(round(got["latency_p50_ms"], 3))
+        p99[name].append(round(got["latency_p99_ms"], 3))
+    return dict(agreement=agree, p50=p50, p99=p99)
 
 
 # ---------------------------------------------------------------------------
@@ -2841,6 +2892,8 @@ def _par_cli(dev, tmp):
     which the two plain runs give one sample, so the largest relative
     difference from the first plain run is held to four times theirs, and
     at least to phase 7's loss bound."""
+    import torch
+
     from evdeblurnerf_torch import cli
 
     synth = _load_tool("synthetic_scene_torch")
@@ -2864,6 +2917,11 @@ def _par_cli(dev, tmp):
 
     for name in ("plain_a", "plain_b"):
         cli.main(argv(name), llff_cls=llff_cls, events_cls=events_cls)
+    # the plain runs' graphs are gone but their pools stay cached in this
+    # process (the step's and the render's): give them back before the
+    # world-1 process trains on the same card
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_reserved() / 2**30
     code = (
         "import importlib.util, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -2911,7 +2969,8 @@ def _par_cli(dev, tmp):
           f"1 vs plain, largest relative loss difference {nccl:.3e}; two "
           f"plain runs {spread:.3e}; losses plain "
           f"{[round(runs['plain_a'][s], 6) for s in steps]}, NCCL "
-          f"{[round(runs['nccl'][s], 6) for s in steps]}")
+          f"{[round(runs['nccl'][s], 6) for s in steps]}; this process "
+          f"held {held_gib:.2f} GiB reserved while the NCCL run trained")
     check(nccl <= bound, f"the NCCL world-1 run's losses differ from the "
           f"plain run's by {nccl:.3e}, beyond {bound:.3e}")
     return dict(nccl_rel=nccl, plain_spread=spread)
@@ -3231,7 +3290,7 @@ def _precision_serve(dev, card, sd, timing):
     out, rgbs = {}, {}
     for name in ("highest", "high"):
         set_matmul_precision(name)
-        r(rays)
+        r.warm()        # a graph of its own at each precision
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -3718,6 +3777,324 @@ def phase_capture(dev, card, sd, crf_sd):
                           run=run)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the captured render
+# ---------------------------------------------------------------------------
+# (a), (d): the serve model's renderers, each captured against eager on one
+# pose; TF32 is the exact renderer at --matmul_precision high
+RENDER_CONFIGS = (
+    ("exact", {}, "highest"),
+    ("culled", dict(fine_cull_capacity=0.25, fine_cull_eval=True),
+     "highest"),
+    ("bf16", dict(triplane_bf16=True), "highest"),
+    ("tf32", {}, "high"),
+)
+RENDER_TOL = 1e-5       # captured vs eager, per ray, where not bitwise; the
+                        # share beyond it is held to CPU_MAX_SHARE
+RENDER_KERNELS = (("permute_lanes",), ("cdf_take",),
+                  ("triplane_features", "triplane_features_bf16_compute"))
+ARTIFACT_CALLS = 10     # (d): chunks a latency reading of the artifact
+# (b): cli.main at the paper width on phase 8's scene, one step key from
+# step 0, testset renders at step 4 and at the last step (7)
+RENDER_RUN_ITERS, RENDER_RUN_TESTSET = 8, 4
+RESERVED_LIMIT_GB = 70.0
+
+
+def _ray_agreement(got, want):
+    """Largest |captured - eager| of rgb and depth, and the share of rays
+    beyond ``RENDER_TOL`` (rgb channels and depth, per ray)."""
+    d_rgb = (got[0] - want[0]).abs().reshape(-1, 3)
+    d_depth = (got[1] - want[1]).abs().reshape(-1)
+    per_ray = d_rgb.max(-1)[0].maximum(d_depth)
+    return dict(rgb=float(d_rgb.max()), depth=float(d_depth.max()),
+                bitwise=bool((per_ray == 0).all()),
+                share_beyond=float((per_ray > RENDER_TOL).float().mean()))
+
+
+def _check_agreement(label, agree):
+    check(agree["bitwise"] or agree["share_beyond"] <= CPU_MAX_SHARE,
+          f"{label}: captured against eager {agree}: more than "
+          f"{CPU_MAX_SHARE} of rays beyond {RENDER_TOL}")
+
+
+def _captured_and_eager(r, pose, K, timing):
+    """One pose through ``r`` (warmed to its graph) and through its eager
+    chunk: the agreement, then poses in turns (eager, captured, captured,
+    eager), each chunk's device ms and the device busy share. Returns
+    (record, the captured pose's launches)."""
+    import numpy as np
+    import torch
+
+    from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.train import evaluate
+
+    n_chunks = -(-H * W // CHUNK)
+    calls = dict(
+        captured=lambda: r.render_poses(pose),
+        eager=lambda: evaluate.render_poses(r.eager, pose, H, W, K,
+                                            chunk=CHUNK, device=r.device))
+    r.warm()
+    renders = {}
+    for name, fn in calls.items():
+        kernels.reset_launches()
+        renders[name] = fn()
+        torch.cuda.synchronize()
+        if name == "captured":
+            launches = dict(kernels.LAUNCHES)
+    for name, (rgb, depth) in renders.items():
+        check(bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all()),
+              f"non-finite {name} render")
+    out = dict(agreement=_ray_agreement(renders["captured"],
+                                        renders["eager"]))
+    del renders
+    rates = {"eager": [], "captured": []}
+    for name in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls[name]()
+        torch.cuda.synchronize()
+        rates[name].append(H * W / (time.perf_counter() - t0))
+    rays = evaluate.pose_rays(pose, H, W, np.asarray(K), r.device)[:CHUNK] \
+        .contiguous()
+    for name, chunk in (("eager", r.eager), ("captured", r)):
+        split = timing.device_ms_by_name(
+            lambda: chunk(rays), ("triplane_fwd", "permute_lanes",
+                                  "cdf_take"), iters=3, warmup=1)
+        device_ms = sum(split.values())
+        wall_ms = 1e3 * H * W / max(rates[name]) / n_chunks
+        out[name] = dict(eval_rays_per_s=rates[name],
+                         device_ms_per_chunk=device_ms,
+                         device_split=split,
+                         busy=min(device_ms / wall_ms, 1.0))
+    return out, launches
+
+
+def _render_kernels_in_graph(r, rays):
+    """Phase 20 (c): one replay of ``r``'s graph under ``torch.profiler``:
+    its kernels on the device by name, against the eager chunk's counted
+    launches, the graph's captured counts and what the replay adds."""
+    from evdeblurnerf_torch import kernels
+
+    kernels.reset_launches()
+    r.eager(rays)
+    eager = _grouped(kernels.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
+    r(rays)
+    per_replay = _grouped({k: kernels.LAUNCHES[k] - before[k]
+                           for k in before})
+    (graph,) = r._render.graphs.values()
+    delta = _grouped(graph.launches)
+    profiled, n_acts = _device_kernel_counts(lambda: r(rays))
+    names = {cs: cs[0] for _, cs in KERNEL_NAMES}
+    print(f"[20 captured render] (c) one replay of the exact chunk under the "
+          f"profiler: kernels by name "
+          f"{ {names[k]: v for k, v in profiled.items()} } of {n_acts} "
+          f"device activities; the eager chunk's launches "
+          f"{ {names[k]: v for k, v in eager.items()} }; the graph's counts "
+          f"{graph.launches}, added by a replay "
+          f"{ {names[k]: v for k, v in per_replay.items()} }")
+    check(profiled == eager == delta == per_replay,
+          f"kernel launches of one replay on the device {profiled}, of the "
+          f"eager chunk {eager}, of the graph {delta}, counted by the "
+          f"replay {per_replay}")
+    for counters in RENDER_KERNELS:
+        check(sum(graph.launches.get(c, 0) for c in counters) > 0,
+              f"kernel {counters[0]} not launched inside the render graph")
+    return dict(profiled={names[k]: v for k, v in profiled.items()},
+                activities=n_acts)
+
+
+def _render_turns(dev, card, sd):
+    """Phase 20 (a), (c), (d), (e) on the serve model of phase 4."""
+    import numpy as np
+    import torch
+
+    from evdeblurnerf_torch import serving
+    from evdeblurnerf_torch.models.system import build_occ_grid
+    from evdeblurnerf_torch.train import loop as tloop
+    from evdeblurnerf_torch.train.evaluate import pose_rays
+    from evdeblurnerf_torch.utils.precision import set_matmul_precision
+
+    timing = _load_tool("timing_torch")
+    K = [[FOCAL, 0.0, W / 2], [0.0, FOCAL, H / 2], [0.0, 0.0, 1.0]]
+    pose = make_poses()[:1]
+    out, launches = {}, None
+    for label, extra, precision in RENDER_CONFIGS:
+        set_matmul_precision(precision)
+        args = argparse.Namespace(**dict(SERVE_FLAGS, **extra))
+        r = serving.build_renderer(args, sd, H, W, K, NEAR, FAR, AABB,
+                                   device=dev)
+        out[label], got = _captured_and_eager(r, pose, K, timing)
+        _check_agreement(label, out[label]["agreement"])
+        if label == "exact":
+            launches = got
+            rays = pose_rays(pose, H, W, np.asarray(K), dev)[:CHUNK] \
+                .contiguous()
+            out["kernels"] = _render_kernels_in_graph(r, rays)
+            # (e) the occupancy refresh on the same weights
+            occ = tloop.build_occ_refresh(r.model)
+            occ.warm()
+            grid = occ()
+            want = build_occ_grid(r.model)
+            (graph,) = occ.graphs.values()
+            out["occupancy"] = dict(bitwise=bool(torch.equal(grid, want)),
+                                    launches=graph.launches,
+                                    occupied=float(grid.mean()))
+            check(out["occupancy"]["bitwise"], "the captured occupancy grid "
+                  "differs from build_occ_grid's")
+            check(graph.launches == {"triplane_features": 1},
+                  f"the occupancy graph launched {graph.launches}")
+            del occ, grid, want
+        del r
+        torch.cuda.empty_cache()
+    set_matmul_precision("highest")
+    return out, launches
+
+
+def _render_run(dev, card):
+    """Phase 20 (b): ``cli.main`` at the paper width on phase 8's scene
+    with two testset renders and captured training replays between them;
+    the second render against an eager render of the weights the run
+    ends with, its ``test_metrics.txt`` line against the metrics of that
+    eager render, the reserved peak with both pools held."""
+    import torch
+
+    from evdeblurnerf_torch import cli
+    from evdeblurnerf_torch.train import evaluate
+    from evdeblurnerf_torch.train import loop as tloop
+    from evdeblurnerf_torch.utils.metrics import compute_img_metric
+
+    synth = _load_tool("synthetic_scene_torch")
+    llff_cls, events_cls = synth.scene_classes()
+    made, renders, tests = [], [], []
+    build, render, test = (tloop.build_chunk_renderer, tloop.render_poses,
+                           tloop.run_test_renders)
+
+    def recording_build(*a, **kw):
+        made.append(build(*a, **kw))
+        return made[-1]
+
+    def recording_render(*a, **kw):
+        out = render(*a, **kw)
+        renders.append((a, kw, tuple(t.clone() for t in out)))
+        return out
+
+    def recording_test(*a, **kw):
+        tests.append((a, kw))
+        return test(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene")
+        os.makedirs(scene)
+        synth.write_scene(scene, train_args().events_threshold, SEED)
+        logs = os.path.join(tmp, "logs")
+        flags = dict(_bench_torch().PAPER_OVERRIDES,
+                     add_event_egm_startiter=0, datadir=scene, basedir=logs,
+                     tbdir=logs, expname="render", no_wandb=True,
+                     device=str(dev), N_iters=RENDER_RUN_ITERS, i_testset=RENDER_RUN_TESTSET,
+                     i_print=10 ** 9, i_tensorboard=10 ** 9,
+                     i_weights=10 ** 9, i_video=10 ** 9)
+        argv = ["--config", os.path.join(REPO, _bench_torch().PAPER_CONFIG)]
+        for k, v in flags.items():
+            argv += [f"--{k}", str(v)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tloop.build_chunk_renderer = recording_build
+        tloop.render_poses = recording_render
+        tloop.run_test_renders = recording_test
+        try:
+            state = cli.main(argv, llff_cls=llff_cls, events_cls=events_cls)
+        finally:
+            tloop.build_chunk_renderer = build
+            tloop.render_poses = render
+            tloop.run_test_renders = test
+        torch.cuda.synchronize()
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        allocated_gb = torch.cuda.max_memory_allocated() / 1e9
+        lines = open(os.path.join(logs, "render", "test_metrics.txt")) \
+            .read().splitlines()
+    check(state.step == RENDER_RUN_ITERS, f"the run ended at {state.step}")
+    check(len(made) == 1 and len(renders) == 2 and len(lines) == 2,
+          f"{len(made)} chunk renderers, {len(renders)} renders, "
+          f"test_metrics.txt {lines}")
+    (r,) = made
+    a, kw, (rgbs, depths) = renders[-1]
+    eager = evaluate.render_poses(r.eager, *a[1:], **kw)
+    agree = _ray_agreement((rgbs, depths), eager)
+    targs, tkw = tests[-1]
+    llff, crf = targs[1], targs[3]
+    rgb8 = evaluate.apply_crf(crf, eager[0].cpu().numpy(),
+                              skip_learn_crf=tkw["skip_learn_crf"])
+    want = {name: compute_img_metric(rgb8, llff.test_images, metric=name)
+            for name in ("mse", "psnr", "ssim")}
+    got = dict(kv.split("=") for kv in lines[-1].split(": ", 1)[1].split()
+               if kv.split("=")[0] in want)
+    metric_diff = max(abs(float(got[k]) - want[k]) for k in want)
+    print(f"[20 captured render] (b) cli.main at the paper width, "
+          f"{RENDER_RUN_ITERS} steps, testset renders at steps "
+          f"{[ln.split(':')[0] for ln in lines]} with captured training "
+          f"replays between them, on {card}: one chunk renderer, "
+          f"{r.programs.captures} capture, graph launches "
+          f"{next(iter(r.graphs.values())).launches}; the second render "
+          f"against an eager render of the final weights: "
+          f"{'bitwise' if agree['bitwise'] else agree}; test_metrics.txt "
+          f"{lines[-1]!r} against the eager render's "
+          f"{ {k: round(v, 6) for k, v in want.items()} } (largest "
+          f"difference {metric_diff:.2e}); peak with the step's and the "
+          f"render's pools held {reserved_gb:.2f} GB reserved, "
+          f"{allocated_gb:.2f} GB allocated")
+    _check_agreement("the loop's second testset render", agree)
+    check(r.programs.captures == 1, f"the loop's chunk renderer captured "
+          f"{r.programs.captures} times")
+    check(metric_diff <= 1e-5 + 5e-6, f"test_metrics.txt {lines[-1]!r} "
+          f"against the eager render's {want}")
+    check(reserved_gb < RESERVED_LIMIT_GB, f"reserved peak {reserved_gb:.2f}"
+          f" GB with both pools held")
+    del state, made, renders, tests, r
+    torch.cuda.empty_cache()
+    return dict(agreement=agree, metric_diff=metric_diff,
+                reserved_gb=reserved_gb, allocated_gb=allocated_gb)
+
+
+def phase_render_capture(dev, card, sd, artifact):
+    """Phase 20 (module docstring). ``artifact``: phase 15's captured
+    artifact readings. Returns the launches of (a)'s captured exact
+    pose."""
+    turns, launches = _render_turns(dev, card, sd)
+    for label, *_ in RENDER_CONFIGS:
+        r = turns[label]
+        print(f"[20 captured render] (a, d) {label}, one {H}x{W} pose on "
+              f"{card}: captured against eager "
+              f"{'bitwise' if r['agreement']['bitwise'] else r['agreement']}"
+              f" (max |d rgb| {r['agreement']['rgb']:.3e}, |d depth| "
+              f"{r['agreement']['depth']:.3e}); eval rays/s in turns eager "
+              f"{[round(v, 1) for v in r['eager']['eval_rays_per_s']]}, "
+              f"captured "
+              f"{[round(v, 1) for v in r['captured']['eval_rays_per_s']]}; "
+              f"device ms a chunk eager "
+              f"{r['eager']['device_ms_per_chunk']:.2f} (busy "
+              f"{100 * r['eager']['busy']:.1f}%), captured "
+              f"{r['captured']['device_ms_per_chunk']:.2f} (busy "
+              f"{100 * r['captured']['busy']:.1f}%), split "
+              f"{_round(r['captured']['device_split'])}")
+    agree = artifact["agreement"]
+    print(f"[20 captured render] (a, d) the artifact of phase 15 against "
+          f"its own eager program: "
+          f"{'bitwise' if agree['bitwise'] else agree}; latency a chunk "
+          f"in turns (eager, captured, captured, eager) "
+          f"p50 eager {artifact['p50']['eager']}, captured "
+          f"{artifact['p50']['captured']} ms; p99 eager "
+          f"{artifact['p99']['eager']}, captured "
+          f"{artifact['p99']['captured']} ms")
+    print(f"[20 captured render] (e) the occupancy refresh captured: "
+          f"bitwise {turns['occupancy']['bitwise']}, launches a replay "
+          f"{turns['occupancy']['launches']}, occupied share "
+          f"{turns['occupancy']['occupied']:.4f}")
+    run = _render_run(dev, card)
+    return launches, dict(turns=turns, run=run)
+
+
 def main():
     try:
         import torch
@@ -3762,7 +4139,7 @@ def main():
         bf16_records, _ = phase_bf16(dev, card, sd_serve, sd, crf_sd)
         for name, cases in tp_cases.items():
             bf16_records[name]["cases"].update(cases)
-        export_launches, _ = phase_export(dev, card, sd_serve)
+        export_launches, exported = phase_export(dev, card, sd_serve)
         parallel_launches, _ = phase_parallel(dev, card, sd, crf_sd,
                                               sd_serve, served)
         print(f"[17 precision] script wall time before phases 17-18: "
@@ -3775,7 +4152,11 @@ def main():
         capture_launches, _ = phase_capture(dev, card, sd, crf_sd)
         print(f"[19 capture] script wall time after phase 19: "
               f"{time.perf_counter() - start:.1f} s")
-        del sd, crf_sd, sd_serve, served
+        render_launches, _ = phase_render_capture(dev, card, sd_serve,
+                                                  exported["capture"])
+        print(f"[20 captured render] script wall time after phase 20: "
+              f"{time.perf_counter() - start:.1f} s")
+        del sd, crf_sd, sd_serve, served, exported
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                          "evdeblurnerf_tpu")]
@@ -3803,12 +4184,14 @@ def main():
     # the parallel paths: the launches of phase 16's compared steps, (b)
     # and (c), summed over their ranks; phase 17's TF32 step blocks and
     # phase 18's culled A/B arm; phase 19's captured window (the kernels
-    # launched inside its graphs, counted at each replay)
+    # launched inside its graphs, counted at each replay); phase 20's
+    # captured exact pose (the same, inside the render's graph)
     for name, r in kernel_results.items():
         r["launches_parallel"] = parallel_launches.get(name, 0)
         r["launches_precision_high"] = precision_launches.get(name, 0)
         r["launches_cull_ab"] = cull_ab_launches.get(name, 0)
         r["launches_captured"] = capture_launches.get(name, 0)
+        r["launches_render_captured"] = render_launches.get(name, 0)
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in
                                   kernel_results.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -25,10 +25,11 @@ The wrapper asks :func:`wants_kernel`:
 :data:`LAUNCHES` counts the launches of each kernel, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` zeroes the
 counts with :func:`reset_launches` before it renders and reads them after).
-A replayed CUDA graph runs no Python: the captured training step
-(``train/capture.py``) takes the counts its capture added as the graph's
-own (:func:`take_launches`, a capture launches nothing) and adds them at
-each replay (:func:`add_launches`).
+A replayed CUDA graph runs no Python: the captured programs
+(``train/capture.py``: the training step, the eval render, the occupancy
+refresh) take the counts their capture added as the graph's own
+(:func:`take_launches`, a capture launches nothing) and add them at each
+replay (:func:`add_launches`).
 The render path's kernels (K1's forward, K3, K4 in its three table
 types) are also custom ops of the dispatcher, ``evdn::<name>``
 (:func:`custom_op`): each launches its kernel or runs its plain twin as

@@ -25,8 +25,11 @@ import torch.nn.functional as F
 def voxel_centers(aabb, grid_size: int, device=None) -> torch.Tensor:
     """World-space centres of a ``G^3`` grid over ``aabb``: [G, G, G, 3],
     axes (ix, iy, iz) as :func:`lookup_bits` reads them."""
-    lo = torch.tensor(aabb[0], dtype=torch.float32, device=device)
-    hi = torch.tensor(aabb[1], dtype=torch.float32, device=device)
+    # filled on the device (a copy from the host cannot be captured in a
+    # CUDA graph, train/capture.py), rounded to float32 as torch.tensor is
+    lo, hi = (torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                      device=device) for v in corner])
+              for corner in aabb)
     G = grid_size
     t = (torch.arange(G, dtype=torch.float32, device=device) + 0.5) / G
     axes = [lo[a] + t * (hi[a] - lo[a]) for a in range(3)]

@@ -44,6 +44,13 @@ A bf16 model (``--triplane_bf16``) is exported, like the JAX artifact,
 with its bf16 eval chain baked in. The rgb CRF is folded into the chunk
 output in both ways of serving.
 
+On a card both renderers replay one CUDA graph per chunk shape, the
+counterpart of the JAX package's jitted chunk renderer and jitted
+``exported.call`` (``train/capture.py::CapturedCall``): the first chunk
+renders eagerly, the second is captured, later ones replay; ``warm()``
+brings a renderer there, ``eager(rays)`` renders a chunk with no graph.
+On the CPU every chunk renders eagerly.
+
 A data-parallel artifact (``--export_devices k``,
 ``evdeblurnerf_tpu/serving.py:240-249``) records k: its program renders
 ``chunk / k`` rays, and the loader places a replica on each of the first
@@ -68,6 +75,7 @@ from torch import nn
 
 from .config import eval_fine_cull
 from .train import evaluate
+from .train.capture import CapturedCall
 from .utils.convert import normalize_legacy_network_state_dict
 
 FIELD_PREFIXES = ("mlp_coarse.", "mlp_fine.")
@@ -89,21 +97,16 @@ def load_network_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return legacy if legacy is not None else ckpt["network_state_dict"]
 
 
-def _encode_rgb(crf, rgb, skip_learn_crf: bool):
-    """rgb through the rgb CRF: a ``TonemappingTransform`` (the training
-    pair) or a single ``CRF`` head."""
-    if hasattr(crf, "encode_rgb"):
-        return crf.encode_rgb(rgb, skip_learn_crf=skip_learn_crf)
-    return crf(rgb, None, skip_learn_crf)
-
-
 class ServingRenderer:
     """A model (c2f or NeRF fields) with its weights and rgb CRF, rendering
     ray chunks; ``fine_cull`` renders them with the transmittance fine
-    cull (``--fine_cull_eval``)."""
+    cull (``--fine_cull_eval``). A chunk goes through
+    ``train/evaluate.py::build_chunk_renderer`` with the CRF folded in: on
+    a card one CUDA graph, replayed (``graph_cls``: a stand-in for
+    tests)."""
 
     def __init__(self, model, crf, chunk: int, H: int, W: int, K,
-                 unused_keys=(), fine_cull: bool = False):
+                 unused_keys=(), fine_cull: bool = False, graph_cls=None):
         self.model = model
         self.fine_cull = bool(fine_cull)
         self.crf = crf
@@ -111,21 +114,33 @@ class ServingRenderer:
         self.H, self.W = int(H), int(W)
         self.K = np.asarray(K, np.float64)
         self.unused_keys = tuple(unused_keys)
+        self._render = evaluate.build_chunk_renderer(
+            model, self.fine_cull, crf=crf, graph_cls=graph_cls)
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
-    @torch.inference_mode()
-    def __call__(self, rays: torch.Tensor):
-        """rays [chunk, 3, 2] -> (rgb [chunk, 3] through the CRF,
-        depth [chunk], acc [chunk])."""
+    def _check(self, rays) -> None:
         if tuple(rays.shape) != (self.chunk, 3, 2):
             raise ValueError(f"this renderer takes chunks of shape "
                              f"({self.chunk}, 3, 2); got {tuple(rays.shape)}")
-        rgb, depth, acc = self.model.render_chunk(
-            rays.to(self.device, torch.float32), fine_cull=self.fine_cull)
-        return self.crf(rgb), depth, acc
+
+    def __call__(self, rays: torch.Tensor):
+        """rays [chunk, 3, 2] -> (rgb [chunk, 3] through the CRF,
+        depth [chunk], acc [chunk])."""
+        self._check(rays)
+        return self._render(rays)
+
+    def eager(self, rays: torch.Tensor):
+        """The same chunk rendered eagerly, with no graph."""
+        self._check(rays)
+        return self._render.eager(rays)
+
+    def warm(self) -> None:
+        """Bring the renderer to its held graph (the eager first call,
+        then the capture)."""
+        self._render.warm(evaluate.blank_rays(self.chunk, self.device))
 
     def render_poses(self, poses, H: Optional[int] = None,
                      W: Optional[int] = None, K=None,
@@ -196,7 +211,7 @@ class RenderProgram(nn.Module):
         ret = self.model.render(rays, fine_cull=self.fine_cull)
         rgb = ret["rgb_map"]
         if self.crf is not None:
-            rgb = _encode_rgb(self.crf, rgb, self.skip_learn_crf)
+            rgb = evaluate.encode_rgb(self.crf, rgb, self.skip_learn_crf)
         return rgb, ret["depth_map"], ret["acc_map"]
 
 
@@ -292,9 +307,16 @@ class ExportedRenderer:
     """A loaded artifact: callable on one ray chunk, plus whole poses in
     chunks (``train/evaluate.py::render_poses``). A data-parallel
     artifact's replicas go to ``devices`` (default: the first ``k`` of the
-    artifact's device type, k recorded at export; fewer raise)."""
+    artifact's device type, k recorded at export; fewer raise).
 
-    def __init__(self, exported, meta: dict, devices=None):
+    A 1-device artifact's chunk replays one CUDA graph of the program's
+    call on a card (``train/capture.py::CapturedCall``, the counterpart of
+    ``jax.jit(exported.call)``, ``evdeblurnerf_tpu/serving.py:140``): its
+    weights are frozen, so the data pointers are the only check before a
+    replay. A k > 1 artifact renders eagerly, said once: its chunk spans k
+    devices. ``graph_cls``: a stand-in graph for tests."""
+
+    def __init__(self, exported, meta: dict, devices=None, graph_cls=None):
         self._exported = exported
         self.meta = dict(meta)
         self.chunk = int(meta["chunk"])
@@ -319,14 +341,13 @@ class ExportedRenderer:
             self._modules = [move_to_device_pass(exported, d).module()
                              for d in self.devices]
         self.device = self.devices[0]
+        reason = (f"a data-parallel artifact over {k} devices (its chunk "
+                  "spans them)" if k > 1 else None)
+        self._render = CapturedCall(self._split, self._modules, self.device,
+                                    "artifact render", reason=reason,
+                                    graph_cls=graph_cls)
 
-    @torch.inference_mode()
-    def __call__(self, rays):
-        if tuple(rays.shape) != (self.chunk, 3, 2):
-            raise ValueError(
-                f"this artifact renders fixed chunks of shape ({self.chunk}, "
-                f"3, 2); got {tuple(rays.shape)}: pad, or export again with "
-                "another --export_chunk")
+    def _split(self, rays):
         # each replica queues its share on its own device before any
         # output is gathered
         outs = [m(part.to(d, torch.float32)) for m, d, part in
@@ -334,6 +355,27 @@ class ExportedRenderer:
                     torch.as_tensor(rays).chunk(len(self._modules)))]
         return tuple(torch.cat([o[j].to(self.device) for o in outs])
                      for j in range(len(outs[0])))
+
+    def _check(self, rays) -> None:
+        if tuple(rays.shape) != (self.chunk, 3, 2):
+            raise ValueError(
+                f"this artifact renders fixed chunks of shape ({self.chunk}, "
+                f"3, 2); got {tuple(rays.shape)}: pad, or export again with "
+                "another --export_chunk")
+
+    def __call__(self, rays):
+        self._check(rays)
+        return self._render(torch.as_tensor(rays))
+
+    def eager(self, rays):
+        """The same chunk through the program's modules, with no graph."""
+        self._check(rays)
+        return self._render.eager(torch.as_tensor(rays))
+
+    def warm(self) -> None:
+        """Bring the artifact to its held graph (the eager first call,
+        then the capture)."""
+        self._render.warm(evaluate.blank_rays(self.chunk, self.device))
 
     def render_poses(self, poses, H: Optional[int] = None,
                      W: Optional[int] = None, K=None,

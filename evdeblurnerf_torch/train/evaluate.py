@@ -10,6 +10,10 @@ results stay there until the end. :func:`apply_crf` puts renders through
 the rgb CRF, :func:`depth_colormap` colours a depth map and
 :func:`format_test_metrics` formats one line of ``test_metrics.txt``.
 
+A chunk renders through :func:`build_chunk_renderer`, the counterpart of
+the JAX package's jitted chunk renderer: on the card one CUDA graph per
+chunk shape (``train/capture.py::CapturedCall``), eagerly on the CPU.
+
 Data-parallel renders (``evaluate.py:23-56,78`` of the JAX package): with
 a ``layout`` of several ray shards the stream is padded to ``chunk`` times
 their number, each rank renders its ``chunk`` rays of every such stretch,
@@ -27,6 +31,7 @@ import torch
 
 from ..parallel import mesh
 from ..utils.rays import get_rays
+from .capture import CapturedCall, group_reason
 
 
 def pose_rays(poses, H: int, W: int, K, device) -> torch.Tensor:
@@ -43,6 +48,54 @@ def pose_rays(poses, H: int, W: int, K, device) -> torch.Tensor:
         rays.append(torch.stack([rays_o.reshape(-1, 3),
                                  rays_d.reshape(-1, 3)], -1))
     return torch.cat(rays, 0).to(torch.float32)
+
+
+def encode_rgb(crf, rgb, skip_learn_crf: bool = False):
+    """rgb through the rgb CRF: a ``TonemappingTransform`` (the training
+    pair) or a single ``CRF`` head."""
+    if hasattr(crf, "encode_rgb"):
+        return crf.encode_rgb(rgb, skip_learn_crf=skip_learn_crf)
+    return crf(rgb, None, skip_learn_crf)
+
+
+def blank_rays(n: int, device) -> torch.Tensor:
+    """[n, 3, 2] rays from the origin down -z: what a renderer warms on."""
+    rays = torch.zeros(n, 3, 2, device=device)
+    rays[:, 2, 1] = -1.0
+    return rays
+
+
+def build_chunk_renderer(model, fine_cull: bool = False, crf=None,
+                         skip_learn_crf: bool = False,
+                         graph_cls=None) -> CapturedCall:
+    """``chunk_fn(rays [chunk, 3, 2]) -> (rgb, depth, acc)``, the
+    deterministic eval render of ``model`` (``render_chunk``: perturb 0,
+    no sigma noise, no coarse cull, so it draws nothing and no generator
+    is registered; the fine cull with ``fine_cull``; the bf16 eval chain
+    where the model has bf16 tables), rgb through ``crf`` when one is
+    given (``skip_learn_crf`` leaves a learned head out). Counterpart of
+    ``evdeblurnerf_tpu/train/evaluate.py::build_chunk_renderer``; what
+    :func:`render_poses` takes.
+
+    On a card the chunk replays one CUDA graph per chunk shape
+    (``train/capture.py::CapturedCall``): the rays staged, the fields'
+    tables refreshed in place and the weights' addresses checked before
+    every replay, so the graph renders the weights as they are now, and
+    the outputs cloned. Under a process group (tensor parallelism's
+    feature ``all_reduce`` sits inside the chunk) it renders eagerly, said
+    once. On the CPU every call runs eagerly. ``graph_cls``: a stand-in
+    graph for tests."""
+    modules = [model] if crf is None else [model, crf]
+
+    def chunk(rays):
+        rgb, depth, acc = model.render_chunk(rays, fine_cull=fine_cull)
+        if crf is not None:
+            rgb = encode_rgb(crf, rgb, skip_learn_crf)
+        return rgb, depth, acc
+
+    return CapturedCall(chunk, modules, model.device, "eval chunk render",
+                        refresh=model.refresh_tables, reason=group_reason(),
+                        graph_cls=graph_cls)
 
 
 @torch.inference_mode()

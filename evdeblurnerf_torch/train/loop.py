@@ -37,7 +37,14 @@ as in the JAX package.
 
 On the card each step of a one-process run replays a CUDA graph of the
 step, one per gate key (``train/capture.py``, the counterpart of the JAX
-package's jitted step); under a process group the step runs eagerly.
+package's jitted step); the held-out, video and render-only renders replay
+one graph of the eval chunk, kept across cadences
+(``train/evaluate.py::build_chunk_renderer``, the counterpart of its
+jitted chunk renderer), and the occupancy refresh one graph of
+``build_occ_grid`` (:func:`build_occ_refresh`, the counterpart of its
+``jax.jit(build_occ_grid)``). Each reads the weights where the step
+leaves them, updated in place. Under a process group all three run
+eagerly.
 
 Dropped against the JAX loop, as TPU mechanism: the shardings of the
 device mesh and the compiled-program cache.
@@ -70,9 +77,9 @@ from ..utils.misc import (annealing_interpolator,
 from ..utils.precision import set_matmul_precision
 from . import state as tstate
 from .checkpoint import CheckpointManager
-from .evaluate import (apply_crf, depth_colormap, format_test_metrics,
-                       render_poses)
-from .capture import build_loop_step
+from .evaluate import (apply_crf, build_chunk_renderer, depth_colormap,
+                       format_test_metrics, render_poses)
+from .capture import CapturedCall, build_loop_step, group_reason
 from .step import compute_schedule_weights
 
 
@@ -226,13 +233,22 @@ def _image_sampler_factory(args, llff):
     return lambda: iter(sampler)
 
 
-def _render(args, llff, model, poses, device, render_factor: int = 0,
+def build_occ_refresh(model, graph_cls=None) -> CapturedCall:
+    """``refresh() -> occupancy grid``: ``build_occ_grid(model)`` as a
+    program of no inputs (module docstring), the coarse tables read in
+    place, the grid cloned out; eager under a process group (tensor
+    parallelism's ``all_reduce`` sits inside)."""
+    return CapturedCall(functools.partial(build_occ_grid, model), [model],
+                        model.device, "occupancy refresh",
+                        refresh=model.refresh_tables, reason=group_reason(),
+                        graph_cls=graph_cls)
+
+
+def _render(args, llff, chunk_fn, poses, device, render_factor: int = 0,
             layout: mesh.Layout = mesh.Layout()):
-    """(rgbs [N, H, W, 3], depths [N, H, W]) as numpy, linear radiance;
-    every rank of ``layout`` renders its shard and gets the whole."""
-    model.eval()
-    chunk_fn = functools.partial(model.render_chunk,
-                                 fine_cull=eval_fine_cull(args))
+    """(rgbs [N, H, W, 3], depths [N, H, W]) as numpy, linear radiance,
+    through ``chunk_fn`` (:func:`build_chunk_renderer`); every rank of
+    ``layout`` renders its shard and gets the whole."""
     rgbs, depths = render_poses(chunk_fn, poses, llff.h, llff.w,
                                 llff.K, chunk=args.chunk,
                                 render_factor=render_factor, device=device,
@@ -240,14 +256,14 @@ def _render(args, llff, model, poses, device, render_factor: int = 0,
     return rgbs.cpu().numpy(), depths.cpu().numpy()
 
 
-def run_test_renders(args, llff, model, crf, device, step, logger, expdir,
+def run_test_renders(args, llff, chunk_fn, crf, device, step, logger, expdir,
                      skip_learn_crf: bool,
                      layout: mesh.Layout = mesh.Layout()):
     """Held-out view eval (ref: run_nerf.py:642-709), at the full
     ``--chunk``: chunking is value-invisible. Every rank renders; the
     primary alone scores and writes. Returns the metrics (None off the
     primary)."""
-    rgbs, depths = _render(args, llff, model, llff.test_poses, device,
+    rgbs, depths = _render(args, llff, chunk_fn, llff.test_poses, device,
                            layout=layout)
     if not multihost.is_primary():
         return None
@@ -280,11 +296,11 @@ def run_test_renders(args, llff, model, crf, device, step, logger, expdir,
     return metrics
 
 
-def run_video_render(args, llff, model, crf, device, step, logger,
+def run_video_render(args, llff, chunk_fn, crf, device, step, logger,
                      skip_learn_crf: bool,
                      layout: mesh.Layout = mesh.Layout()):
     """Spiral/EPI novel-view video (ref: run_nerf.py:711-734)."""
-    rgbs, depths = _render(args, llff, model, llff.render_poses, device,
+    rgbs, depths = _render(args, llff, chunk_fn, llff.render_poses, device,
                            render_factor=args.render_factor, layout=layout)
     rgbs = apply_crf(crf, rgbs, skip_learn_crf=skip_learn_crf)
     logger.video("video/rgb", rgbs, step)
@@ -370,6 +386,10 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
         with open(wandb_id_path, "w") as f:
             json.dump({"wandb_id": logger.wandb_id}, f)
 
+    # one chunk renderer for every render of this run: it renders the
+    # weights as the step leaves them, in place
+    chunk_fn = build_chunk_renderer(model, fine_cull=eval_fine_cull(args))
+
     # ------------------------------------------------------------------
     # render-only (ref: run_nerf.py:337-414)
     # ------------------------------------------------------------------
@@ -377,7 +397,7 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
         poses = llff.test_poses if args.render_test else llff.render_poses
         name = "test" if args.render_test else "path"
         t0 = time.perf_counter()
-        rgbs, depths = _render(args, llff, model, poses, device,
+        rgbs, depths = _render(args, llff, chunk_fn, poses, device,
                                render_factor=args.render_factor,
                                layout=layout)
         dt = time.perf_counter() - t0
@@ -441,6 +461,7 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
     # refreshed on its cadence; the gate decides at each refresh
     occ_grid = None
     occ_engaged = False
+    occ_refresh = build_occ_refresh(model)
 
     N_iters = args.N_iters if max_iters is None else min(args.N_iters,
                                                          start + max_iters)
@@ -457,7 +478,7 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
             if coarse_cull and (occ_grid is None
                                 or (i - args.coarse_cull_start_iter)
                                 % args.occ_refresh_every == 0):
-                occ_grid = build_occ_grid(model)
+                occ_grid = occ_refresh()
                 occ_frac = float(occ_grid.mean())
                 margin = args.occ_gate_margin
                 occ_engaged = (margin <= 0.0 or expected_keep_fraction(
@@ -525,13 +546,13 @@ def train(args, max_iters: Optional[int] = None, llff_cls=LLFFDataset,
                 multihost.barrier()
             if (i % args.i_testset == 0 and i > 0) or is_last:
                 run_test_renders(
-                    args, llff, model, crf, device, i, logger, expdir,
+                    args, llff, chunk_fn, crf, device, i, logger, expdir,
                     skip_learn_crf=i < args.tone_mapping_start_learn_iter,
                     layout=layout)
                 multihost.barrier()
             if i % args.i_video == 0 and i > 0:
                 run_video_render(
-                    args, llff, model, crf, device, i, logger,
+                    args, llff, chunk_fn, crf, device, i, logger,
                     skip_learn_crf=i < args.tone_mapping_start_learn_iter,
                     layout=layout)
     finally:

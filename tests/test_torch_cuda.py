@@ -31,7 +31,10 @@ bf16) to K6's 1e-5 against its twin.
 The captured training step (``train/capture.py``), on a tiny paper step:
 its replays equal the eager step within K5's 1e-5, its tables are
 repacked in place, and Adam's state is made by the eager first step,
-outside the capture.
+outside the capture. The captured eval render
+(``train/evaluate.py::build_chunk_renderer``), the captured artifact and
+the captured occupancy refresh equal their eager calls bitwise, also
+after the weights changed in place between replays.
 """
 
 import pytest
@@ -936,3 +939,106 @@ def test_captured_step_makes_adam_state_outside_capture(dev):
         assert int(st["step"]) == CAPTURE_STEPS
         assert st["step"].device.type == "cuda"
         assert float(st["exp_avg_sq"].abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the captured eval render (train/evaluate.py::build_chunk_renderer): one
+# graph per chunk shape
+# ---------------------------------------------------------------------------
+
+def _tiny_render_model(dev):
+    cfg = RenderConfig(N_samples=16, N_importance=16, multires=4,
+                       multires_views=2, H=32, W=40, focal=30.0,
+                       aabb=((-1.6, -1.6, -1.0), (1.6, 1.6, 1.0)),
+                       coarse_n_voxels=32768, fine_n_voxels=65536,
+                       coarse_app_n_comp=(8, 4, 4), fine_app_n_comp=(8, 4, 4),
+                       coarse_hidden_dim=16, coarse_hidden_dim_color=16,
+                       fine_hidden_dim=32, fine_hidden_dim_color=32,
+                       fine_geo_feat_dim=16, coarse_app_dim=8, fine_app_dim=8,
+                       occ_grid_size=16)
+    model = EvDeblurNeRF(cfg, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    rays = torch.randn(512, 3, 2, generator=g) * torch.tensor([0.05, 1.0])
+    rays[:, 2, 1] = -rays[:, 2, 1].abs() - 0.5
+    return model.eval(), rays.to(dev)
+
+
+def _assert_equal(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_captured_chunk_equals_eager_chunk(dev):
+    """A chunk replayed from the renderer's graph equals the eager chunk
+    bitwise (same kernels in the same order), counts the eager chunk's
+    launches at each replay, and a kept chunk is not overwritten."""
+    from evdeblurnerf_torch.train.evaluate import build_chunk_renderer
+
+    model, rays = _tiny_render_model(dev)
+    r = build_chunk_renderer(model)
+    r.warm(rays)
+    assert r.programs.captures == 1
+    kernels.reset_launches()
+    want = model.render_chunk(rays)
+    eager = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    got = r(rays)
+    assert dict(kernels.LAUNCHES) == eager
+    _assert_equal(got, want)
+    r(rays.flip(0))
+    _assert_equal(got, want)
+
+
+def test_captured_render_follows_weights_changed_in_place(dev):
+    """Between replays the weights change in place, by a grid edit the
+    renderer's refresh repacks and by captured training steps (Adam and
+    the repack write in place): each replay renders the weights as they
+    are, bitwise the eager chunk, with no second capture."""
+    from evdeblurnerf_torch.train.evaluate import build_chunk_renderer
+
+    state, step, _, _ = _tiny_capture_run(dev, True)
+    model = state.model
+    model.eval()
+    g = torch.Generator().manual_seed(2)
+    rays = (torch.randn(256, 3, 2, generator=g)
+            * torch.tensor([0.05, 1.0])).to(dev)
+    rays[:, 2, 1] = -rays[:, 2, 1].abs() - 0.5
+    r = build_chunk_renderer(model)
+    r.warm(rays)
+    with torch.no_grad():
+        model.mlp_fine.app_plane[0].mul_(1.5)
+    _assert_equal(r(rays), model.render_chunk(rays))
+    import chip_smoke
+    from evdeblurnerf_torch.train import step as tstep
+
+    batch, ev = chip_smoke.make_train_batch(dev, 32, 16)
+    before = [p.detach().clone() for p in model.parameters()]
+    # a key of its own: one eager step, then one captured and replayed
+    for _ in range(2):
+        step(state, batch, ev, tstep.ScheduleWeights(), False, True)
+    assert any(not torch.equal(a, p) for a, p in
+               zip(before, model.parameters()))
+    _assert_equal(r(rays), model.render_chunk(rays))
+    assert r.programs.captures == 1
+
+
+def test_captured_artifact_and_occupancy_equal_eager(dev):
+    """An exported artifact's chunk replayed from its graph equals its
+    program run eagerly, bitwise; the captured occupancy refresh equals
+    ``build_occ_grid`` bitwise with one K4 launch a replay."""
+    from evdeblurnerf_torch import serving
+    from evdeblurnerf_torch.models.system import build_occ_grid
+    from evdeblurnerf_torch.train.loop import build_occ_refresh
+
+    model, rays = _tiny_render_model(dev)
+    exported, meta = serving.export_renderer(model, chunk=rays.shape[0])
+    a = serving.ExportedRenderer(exported, meta)
+    a.warm()
+    _assert_equal(a(rays), a.eager(rays))
+    assert a._render.programs.captures == 1
+    occ = build_occ_refresh(model)
+    occ.warm()
+    assert torch.equal(occ(), build_occ_grid(model))
+    (graph,) = occ.graphs.values()
+    assert graph.launches == {"triplane_features": 1}

@@ -5,7 +5,9 @@ port (``evdeblurnerf_torch/serving.py``); the counterpart of
 
 - **latency**: wall time of one synchronous chunk render (call -> result
   on the host), p50/p90/p99 over ``--calls`` calls: what an online request
-  pays;
+  pays. A chunk replays the artifact's CUDA graph on a card
+  (``serving.ExportedRenderer``); the same readings of the eager call on
+  the same renderer are kept under ``eager``, taken first;
 - **throughput**: rays/s with ``--in_flight`` chunks queued ahead of the
   host's wait (the offline and video-render regime, the pipeline of
   ``train/evaluate.py``);
@@ -42,6 +44,39 @@ def make_rays(n: int, seed: int = 0) -> np.ndarray:
     return np.stack([o, d], axis=-1)
 
 
+def readings(call, rays, calls: int, in_flight: int, sync) -> dict:
+    """Latency p50/p90/p99 and throughput of ``call`` on ``rays``."""
+    # latency: a synchronous call with its result on the host
+    lat = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        rgb, depth, _ = call(rays)
+        rgb.cpu(), depth.cpu()
+        lat.append(time.perf_counter() - t0)
+    lat = np.asarray(lat)
+
+    # throughput: at most ``in_flight`` chunks queued before the host waits
+    sync()
+    t0 = time.perf_counter()
+    pending = []
+    for _ in range(calls):
+        rgb, depth, _ = call(rays)
+        pending.append((rgb, depth))
+        while len(pending) > max(in_flight, 0):
+            a, b = pending.pop(0)
+            a.cpu(), b.cpu()
+    for a, b in pending:
+        a.cpu(), b.cpu()
+    sync()
+    thr_dt = (time.perf_counter() - t0) / calls
+    return {
+        "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "latency_p90_ms": float(np.percentile(lat, 90)) * 1e3,
+        "latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "throughput_rays_per_sec": rays.shape[0] / thr_dt,
+    }
+
+
 def run(artifact: str, calls: int = 30, in_flight: int = 4,
         warmup: int = 3) -> dict:
     """Measure one artifact; returns the result dict."""
@@ -61,33 +96,11 @@ def run(artifact: str, calls: int = 30, in_flight: int = 4,
     t0 = time.perf_counter()
     r(rays)[0].cpu()
     first_call_s = time.perf_counter() - t0
+    # the second call captures the graph the later ones replay
     for _ in range(max(warmup - 1, 0)):
         r(rays)[0].cpu()
 
-    # latency: a synchronous call with its result on the host
-    lat = []
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        rgb, depth, _ = r(rays)
-        rgb.cpu(), depth.cpu()
-        lat.append(time.perf_counter() - t0)
-    lat = np.asarray(lat)
-
-    # throughput: at most ``in_flight`` chunks queued before the host waits
-    sync()
-    t0 = time.perf_counter()
-    pending = []
-    for _ in range(calls):
-        rgb, depth, _ = r(rays)
-        pending.append((rgb, depth))
-        while len(pending) > max(in_flight, 0):
-            a, b = pending.pop(0)
-            a.cpu(), b.cpu()
-    for a, b in pending:
-        a.cpu(), b.cpu()
-    sync()
-    thr_dt = (time.perf_counter() - t0) / calls
-
+    eager = readings(r.eager, rays, calls, in_flight, sync)
     return {
         "artifact": artifact,
         "chunk": r.chunk,
@@ -96,10 +109,8 @@ def run(artifact: str, calls: int = 30, in_flight: int = 4,
         "bytes": os.path.getsize(artifact),
         "load_s": load_s,
         "first_call_s": first_call_s,
-        "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
-        "latency_p90_ms": float(np.percentile(lat, 90)) * 1e3,
-        "latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
-        "throughput_rays_per_sec": r.chunk / thr_dt,
+        **readings(r, rays, calls, in_flight, sync),
+        "eager": eager,
     }
 
 

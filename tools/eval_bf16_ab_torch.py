@@ -8,7 +8,9 @@ bf16, the double-angle encoding); the reference's eval protocol is f32
 end to end (ref: run_nerf.py:642-709). This tool restores ONE checkpoint
 of a ``tools/validate_train_torch.py`` run and renders its held-out views
 twice, through the chain and with ``eval_f32_interp`` (the chain off: the
-same bf16 rows, f32 math, the exact encoding), in one process, and prints
+same bf16 rows, f32 math, the exact encoding), in one process, each
+through the port's chunk renderer (``train/evaluate.py::
+build_chunk_renderer``, which replays a CUDA graph on the card), and prints
 one JSON line: both arms' PSNR / SSIM / LPIPS, their differences, and the
 pixel difference between the two renders (mean, p99, max, on [0, 1]
 radiance after the CRF).
@@ -86,9 +88,9 @@ def main(argv=None):
         field.load_state_dict(fields, strict=True)
         field.eval()
         assert field.mlp_coarse.eval_bf16(False) is not f32_interp
-        rgbs, _ = evaluate.render_poses(field.render_chunk, llff.test_poses,
-                                        llff.h, llff.w, llff.K,
-                                        chunk=targs.chunk, device=device)
+        rgbs, _ = evaluate.render_poses(
+            evaluate.build_chunk_renderer(field), llff.test_poses, llff.h,
+            llff.w, llff.K, chunk=targs.chunk, device=device)
         rgbs = evaluate.apply_crf(
             crf, rgbs.cpu().numpy(),
             skip_learn_crf=step < targs.tone_mapping_start_learn_iter)

@@ -7,9 +7,12 @@ transmittance fine cull into the held-out and served renders. This tool
 says what that costs: it restores the newest checkpoint of a
 ``tools/validate_train_torch.py`` run, renders the held-out views with
 the exact fine pass and with the culled pass (``--capacity`` lanes a ray,
-``--eps`` transmittance), both through ``render_chunk`` in one process
-(``fine_cull=False`` and ``fine_cull=True``), each arm a warm render and
-then a timed one (synchronised on the card), and prints one JSON line:
+``--eps`` transmittance), both through the port's chunk renderer in one
+process (``train/evaluate.py::build_chunk_renderer`` with
+``fine_cull=False`` and ``fine_cull=True``: on the card each replays its
+CUDA graph), each arm a warm render, which brings its renderer to the
+graph, and then a timed one (synchronised on the card), and prints one
+JSON line:
 each arm's MSE / PSNR / SSIM / LPIPS, ``render_s`` and kernel launches of
 the timed render, the differences (cull minus full), and the pixel
 difference between the two renders (mean, p99, max, on [0, 1] radiance
@@ -87,16 +90,16 @@ def restore(argv=None):
                            model=model, crf=crf, step=int(step))
 
 
-def render_views(run, fine_cull):
-    """The held-out views through ``render_chunk(fine_cull=...)``, the CRF
-    applied as the loop's held-out renders apply it: numpy [N, H, W, 3]."""
+def render_views(run, chunk_fn):
+    """The held-out views through ``chunk_fn`` (an arm's chunk renderer),
+    the CRF applied as the loop's held-out renders apply it: numpy
+    [N, H, W, 3]."""
     from evdeblurnerf_torch.train import evaluate
 
     llff = run.llff
     rgbs, _ = evaluate.render_poses(
-        lambda rays: run.model.render_chunk(rays, fine_cull=fine_cull),
-        llff.test_poses, llff.h, llff.w, llff.K, chunk=run.targs.chunk,
-        device=run.device)
+        chunk_fn, llff.test_poses, llff.h, llff.w, llff.K,
+        chunk=run.targs.chunk, device=run.device)
     return evaluate.apply_crf(
         run.crf, rgbs.cpu().numpy(),
         skip_learn_crf=run.step < run.targs.tone_mapping_start_learn_iter)
@@ -108,6 +111,7 @@ def compare(argv=None):
     import torch
 
     from evdeblurnerf_torch import kernels
+    from evdeblurnerf_torch.train import evaluate
     from evdeblurnerf_torch.utils.metrics import compute_img_metric
 
     run = restore(argv)
@@ -119,11 +123,12 @@ def compare(argv=None):
 
     arms, renders = {}, {}
     for arm, cull in ARMS:
-        render_views(run, cull)                 # warm render
+        chunk_fn = evaluate.build_chunk_renderer(run.model, fine_cull=cull)
+        render_views(run, chunk_fn)             # warm render
         sync()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        rgbs = render_views(run, cull)
+        rgbs = render_views(run, chunk_fn)
         sync()
         secs = time.perf_counter() - t0
         renders[arm] = rgbs

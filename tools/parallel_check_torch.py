@@ -121,8 +121,8 @@ def run(setup, device, layout):
         kernels.reset_launches()
         t0 = time.perf_counter()
         rgb, depth = evaluate.render_poses(
-            model.render_chunk, r["poses"], r["H"], r["W"], r["K"],
-            chunk=r["chunk"], device=device, layout=layout)
+            evaluate.build_chunk_renderer(model), r["poses"], r["H"],
+            r["W"], r["K"], chunk=r["chunk"], device=device, layout=layout)
         _sync(device)
         record["render_s"] = time.perf_counter() - t0
         record["launches"] = dict(kernels.LAUNCHES)

@@ -5,8 +5,10 @@ each chunk's device time by kernel name, largest first, from
 ``torch.profiler`` (``tools/timing_torch.py``).
 
 The model is ``bench_torch.py``'s serve model (the paper configuration's
-fields, seeded random weights) behind ``serving.build_renderer``; the
-chunk is the first 32,768 rays of a 480 x 640 pose.
+fields, seeded random weights) behind ``serving.build_renderer``, warmed
+to its held CUDA graph (``train/evaluate.py::build_chunk_renderer``), so
+each profiled chunk is a replay; the chunk is the first 32,768 rays of a
+480 x 640 pose.
 
 Usage (needs one CUDA card and nvcc), from the root of a checkout:
     python tools/profile_serve_torch.py [--iters 3] [--top 15]
@@ -62,8 +64,7 @@ def main(argv=None):
             bench_torch.train_args(chunk=32768, triplane_bf16=bf16), sd, h,
             w, K, bench_torch.NEAR, bench_torch.FAR, bench_torch.AABB,
             device=dev)
-        for _ in range(2):
-            r(rays)
+        r.warm()
         by_name = collections.defaultdict(lambda: [0.0, 0])
         for kname, us in timing_torch._device_activities(
                 lambda: r(rays), opts.iters):
