@@ -145,17 +145,6 @@ def make_train_batch(dev, n_rand, events_n_rand):
             {k: torch.from_numpy(v).to(dev) for k, v in ev_batch.items()})
 
 
-def card_line():
-    """The card's name and power limit as ``nvidia-smi`` gives them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    return smi.stdout.strip().splitlines()[0]
-
-
 def _load_tool(name):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(REPO, "tools", f"{name}.py"))
@@ -476,7 +465,8 @@ def run(n_rand=1024, events_n_rand=4096, grad_accum=1, iters=10,
         device=dict(platform="gpu" if dev.type == "cuda" else "cpu",
                     kind=(torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu")),
-        card=card_line() if dev.type == "cuda" else None,
+        card=(_load_tool("timing_torch").card_line()
+              if dev.type == "cuda" else None),
         torch=torch.__version__, cuda=torch.version.cuda, commit=_commit(),
         config=PAPER_CONFIG, overrides={**PAPER_OVERRIDES, **overrides},
         tiny=tiny)

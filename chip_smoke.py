@@ -257,7 +257,30 @@ kernel and case, phase 8 a few):
     the artifact's latency p50/p99 a chunk in the same turns; (e) the
     occupancy refresh (``train/loop.py::build_occ_refresh``) captured:
     its grid bitwise ``build_occ_grid``'s, one K4 launch a replay.
-    ``launches_render_captured``: (a)'s captured exact pose.
+    ``launches_render_captured``: (a)'s captured exact pose;
+21. the probes, the last two TPU kernels of the repository, each through
+    its own entry point (their launches in the JSON line are these runs'):
+    (c) ``tools/probe_scatter_torch.py --skip-xla`` (K8, runs of G = 1, 8,
+    64 and 512 rows at the JAX tool's offsets and on a permutation, each
+    draw's placement rule held) and ``tools/probe_onehot_torch.py`` (K9, K = 256, 1024, 4096 over
+    bf16 and f32 tiles, each within 1e-6 of its twin); (a) K8
+    ``place_rows`` at the probe's default size (2,359,296 rows of 128
+    floats, a 262,144-row output) for each G, on collision-free offsets (a
+    permutation into an output of N rows) and on colliding ones drawn as
+    the tool draws them: bitwise equal to its twin on every written row
+    (both leave the run of the highest index where runs collide), each
+    destination one whole run aimed at it; (b) K9 ``onehot_lerp`` at
+    1,048,576 points, C = 64, for each K over bf16 and f32 tiles, within
+    1e-6 of the twin's largest magnitude (the tensor core's accumulation
+    need not round to nearest); (d) for each, the kernel's time back to
+    back and its kernels' device time by name, the twin's, the library
+    call's (``index_copy_`` on the permutation, where it computes the same
+    function; ``F.embedding_bag`` over the two rows a point selects) and
+    the bound: bytes over 3.35 TB/s (for K8 the runs that land, read and
+    written, and the offsets; its row in the JSON line is the permutation
+    at G = 1, where every run lands), and for K9 the larger of that and
+    2 N K C operations over 989 TFLOP/s (bf16) or 165 TFLOP/s (f32 by
+    three TF32 products a product, at 495).
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -313,6 +336,9 @@ SERVE_FLAGS = dict(
 # step 0): train_args() and make_train_batch() below
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
+# an f32 product as three TF32 products (K9's f32 form), at 495 TFLOP/s
+TF32X3_FLOPS_PER_S = 495e12 / 3
 NUM_IMAGES = 30         # bench.py's scene
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 AB_RAYS, AB_EV_RAYS = 64, 64
@@ -409,12 +435,7 @@ def phase_environment():
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = _timed(_load_tool("timing_torch").card_line)
     from evdeblurnerf_torch.utils.precision import set_matmul_precision
 
     mode = set_matmul_precision("highest")
@@ -444,21 +465,22 @@ def phase_build():
 
 
 def _kernel_entry(source, replaces, err, ms, plain_ms, nbytes=0, flops=0,
-                  library_ms=None, **extra):
+                  library_ms=None, flops_per_s=F32_FLOPS_PER_S, **extra):
     """One kernel's record. ``nbytes``: what the function must move at
     these inputs (each input read once, each output written once; of a
     table that is gathered from, no more than the rows the points can
-    touch); ``flops``: its float32 operations. The bound is the larger of
-    the two over the card's published rates."""
+    touch); ``flops``: its operations, at ``flops_per_s`` (float32 outside
+    the tensor cores unless given). The bound is the larger of the two
+    over the card's published rates."""
     entry = dict(route="cuda", source=f"evdeblurnerf_torch/csrc/{source}",
                  replaces=replaces, max_abs_err=err, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms, **extra)
-    return _set_bound(entry, nbytes, flops)
+    return _set_bound(entry, nbytes, flops, flops_per_s)
 
 
-def _set_bound(entry, nbytes, flops):
+def _set_bound(entry, nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / F32_FLOPS_PER_S
+    by_ops = 1e3 * flops / flops_per_s
     entry.update(bound_ms=max(by_bytes, by_ops), bytes=int(nbytes),
                  flops=int(flops),
                  bound_by="bytes" if by_bytes >= by_ops else "operations")
@@ -3486,12 +3508,21 @@ CAPTURE_RUN_FLAGS = dict(kernel_start_iter=6, tone_mapping_start_learn_iter=6,
                          i_weights=8, i_tensorboard=1, i_print=100)
 
 
-def _device_kernel_counts(fn):
-    """Launches of ``fn`` on the device by kernel, from a ``torch.profiler``
-    trace: ``{counter names: count}`` over :data:`KERNEL_NAMES`."""
-    acts = _load_tool("timing_torch")._device_activities(fn, 1)
-    return ({counters: sum(1 for n, _ in acts if any(k in n for k in names))
-             for names, counters in KERNEL_NAMES}, len(acts))
+def _device_kernel_counts(fn, calls=1):
+    """Launches of one call of ``fn`` on the device by kernel, from a
+    ``torch.profiler`` trace of ``calls`` calls: ``{counter names:
+    count}`` over :data:`KERNEL_NAMES`, and the device activities, each
+    the trace's over ``calls``. A trace now and then loses records; with
+    more than one call, one whose records are no multiple of ``calls`` is
+    taken again (``tools/timing_torch.py::_device_activities``)."""
+    acts = _load_tool("timing_torch")._device_activities(fn, calls)
+
+    def per_call(n):
+        return n // calls if n % calls == 0 else n / calls
+
+    return ({counters: per_call(sum(1 for n, _ in acts
+                                    if any(k in n for k in names)))
+             for names, counters in KERNEL_NAMES}, per_call(len(acts)))
 
 
 def _grouped(launches):
@@ -3884,7 +3915,9 @@ def _render_kernels_in_graph(r, rays):
                            for k in before})
     (graph,) = r._render.graphs.values()
     delta = _grouped(graph.launches)
-    profiled, n_acts = _device_kernel_counts(lambda: r(rays))
+    # a replay renders the same chunk again: three in one trace, so that a
+    # trace that lost a record shows it and is taken again
+    profiled, n_acts = _device_kernel_counts(lambda: r(rays), calls=3)
     names = {cs: cs[0] for _, cs in KERNEL_NAMES}
     print(f"[20 captured render] (c) one replay of the exact chunk under the "
           f"profiler: kernels by name "
@@ -4095,6 +4128,218 @@ def phase_render_capture(dev, card, sd, artifact):
     return launches, dict(turns=turns, run=run)
 
 
+PROBE_N, PROBE_K, PROBE_W = 2_359_296, 262_144, 128
+PROBE_GROUPS = (1, 8, 64, 512)
+ONEHOT_N, ONEHOT_C = 1_048_576, 64
+ONEHOT_KS = (256, 1024, 4096)
+ONEHOT_REL_TOL = 1e-6   # of the twin's largest magnitude
+
+
+def _probe_entry_points():
+    """21 (c): each probe tool's main through its entry point, the counts
+    zeroed just before each; returns {counter: launches}."""
+    from evdeblurnerf_torch import kernels
+
+    launches = {}
+    kernels.reset_launches()
+    print("[21 probes] (c) tools/probe_scatter_torch.py --skip-xla "
+          "--iters 2", flush=True)
+    res = _load_tool("probe_scatter_torch").main(["--skip-xla", "--iters",
+                                                  "2"])
+    launches["place_rows"] = kernels.LAUNCHES["place_rows"]
+    check(all(c["collision_rule"] for c in res["cases"].values()),
+          "K8 broke the placement rule on its entry point")
+    kernels.reset_launches()
+    print("[21 probes] (c) tools/probe_onehot_torch.py --iters 2",
+          flush=True)
+    res = _load_tool("probe_onehot_torch").main(["--iters", "2"])
+    for name in ("onehot_lerp", "onehot_lerp_bf16"):
+        launches[name] = kernels.LAUNCHES[name]
+    check(all(c["held"] for c in res["cases"].values()),
+          "K9 left its twin's bound on its entry point")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on its entry point")
+    return launches
+
+
+def _probe_scatter_draw(rows, offsets, out_rows, group, timing, label,
+                        library):
+    """21 (a), (d) on one draw: K8 bitwise against its twin on the written
+    rows, each destination one whole run aimed at it; then its times and
+    its bound, the bytes of the runs that land and of the offsets.
+    ``library``: whether ``index_copy_`` computes the same function here
+    (no two runs share a destination)."""
+    import torch
+
+    from evdeblurnerf_torch.ops import probe_scatter as ps
+
+    W = rows.shape[1]
+    got = ps.place_rows(rows, offsets, out_rows, group)
+    want = ps.place_rows_plain(rows, offsets, out_rows, group)
+    written = ps.written_runs(offsets, out_rows, group)
+    mask = written.repeat_interleave(group)
+    check(torch.equal(got[mask], want[mask]),
+          f"K8 {label}: written rows differ from the twin")
+    check(torch.equal(ps.runs_match(got, rows, offsets, group), written),
+          f"K8 {label}: a destination holds no whole run aimed at it")
+    del got, want, mask
+
+    def kernel():
+        return ps.place_rows(rows, offsets, out_rows, group)
+
+    ms, plain_ms = ab_ms(
+        lambda: ps.place_rows_plain(rows, offsets, out_rows, group), kernel)
+    split = _timed(timing.device_ms_by_name, kernel,
+                   ("place_rows_claim", "place_rows_copy"))
+    case = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                device_ms=split["place_rows_claim"]
+                + split["place_rows_copy"],
+                claim_device_ms=split["place_rows_claim"],
+                copy_device_ms=split["place_rows_copy"],
+                runs=offsets.shape[0], written_runs=int(written.sum()))
+    if library:
+        dst = offsets.long() // group
+        runs3 = rows.view(-1, group, W)
+        lib_out = torch.empty(out_rows // group, group, W,
+                              device=rows.device)
+        case["library_ms"] = cuda_ms(lambda: lib_out.index_copy_(0, dst,
+                                                                 runs3))
+        del lib_out
+    _set_bound(case, 2 * case["written_runs"] * group * W * 4
+               + case["runs"] * 4, 0)
+    print(f"[21 probes] (a) place_rows {label}: bitwise equal to the twin "
+          f"on the written rows ({case['written_runs']} of "
+          f"{out_rows // group} destinations written); kernels' device "
+          f"{case['device_ms']:.4f} ms (claim {case['claim_device_ms']:.4f}, "
+          f"copy {case['copy_device_ms']:.4f}), back to back {ms:.4f} ms, "
+          f"twin "
+          f"{plain_ms:.4f} ms, index_copy_ "
+          + ("-" if case["library_ms"] is None
+             else f"{case['library_ms']:.4f} ms")
+          + f", bound {case['bound_ms']:.4f} ms", flush=True)
+    return case
+
+
+def _probe_scatter(dev, g, timing):
+    """21 (a), (d): K8 against its twin at the probe's default size, for
+    each run length on a permutation of the N / G runs into N rows (every
+    run lands: the kernel's row in the JSON line, timed and bound at G =
+    1) and on colliding offsets into K rows as the tool draws them (only
+    each destination's last run lands, and the bound counts those)."""
+    import torch
+
+    N, K, W = PROBE_N, PROBE_K, PROBE_W
+    rows = torch_randn(dev, g, N, W)
+    entry = _kernel_entry("probe_scatter.cu", "tools/probe_scatter.py:95",
+                          0.0, 0, 0, rows=N, out_rows_colliding=K, W=W,
+                          cases={})
+    for group in PROBE_GROUPS:
+        runs = N // group
+        perm = (torch.randperm(runs, generator=g, device=dev)
+                * group).to(torch.int32)
+        colliding = (torch.randint(0, (K - group) // group, (runs,),
+                                   generator=g, device=dev)
+                     * group).to(torch.int32)
+        entry["cases"][f"G={group} permutation"] = _probe_scatter_draw(
+            rows, perm, N, group, timing, f"G={group} permutation", True)
+        entry["cases"][f"G={group} colliding"] = _probe_scatter_draw(
+            rows, colliding, K, group, timing, f"G={group} colliding", False)
+        del perm, colliding
+    head = entry["cases"]["G=1 permutation"]
+    for key in ("ms", "plain_ms", "library_ms", "device_ms", "bound_ms",
+                "bound_by", "bytes"):
+        entry[key] = head[key]
+    return entry
+
+
+def _probe_onehot(dev, g, timing):
+    """21 (b), (d): K9 against its twin at the probe's size; returns the
+    records of its f32 and its bf16 form."""
+    import torch
+    import torch.nn.functional as F
+
+    from evdeblurnerf_torch.ops import probe_onehot as po
+
+    N, C = ONEHOT_N, ONEHOT_C
+    records = {}
+    for name, dt, rate in (("onehot_lerp", torch.float32,
+                            TF32X3_FLOPS_PER_S),
+                           ("onehot_lerp_bf16", torch.bfloat16,
+                            BF16_TC_FLOPS_PER_S)):
+        esize = torch.tensor([], dtype=dt).element_size()
+        entry = _kernel_entry("probe_onehot.cu", "tools/probe_onehot.py:25",
+                              0.0, 0, 0, points=N, C=C, cases={})
+        for K in ONEHOT_KS:
+            idx = torch.randint(0, K - 1, (N,), generator=g, device=dev,
+                                dtype=torch.int32)
+            frac = torch.rand(N, generator=g, device=dev)
+            tile = torch_randn(dev, g, K, C).to(dt)
+            got = po.onehot_lerp(idx, frac, tile)
+            want = po.onehot_lerp_plain(idx, frac, tile)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= ONEHOT_REL_TOL * scale,
+                  f"K9 {name} K={K}: max |kernel - twin| {err:.3e} exceeds "
+                  f"{ONEHOT_REL_TOL} x {scale:.3e}")
+            del got, want
+            corners = torch.stack([idx, idx + 1], 1)
+            weights = torch.stack([1.0 - frac, frac], 1).to(dt)
+
+            def kernel():
+                return po.onehot_lerp(idx, frac, tile)
+
+            case = dict(
+                ms=cuda_ms(kernel),
+                plain_ms=cuda_ms(lambda: po.onehot_lerp_plain(idx, frac,
+                                                              tile),
+                                 iters=3, warmup=1),
+                device_ms=_timed(timing.device_ms_by_name, kernel,
+                                 ("onehot",))["onehot"],
+                library_ms=cuda_ms(lambda: F.embedding_bag(
+                    corners, tile, per_sample_weights=weights, mode="sum")),
+                max_abs_err=err, scale=scale, K=K)
+            _set_bound(case, N * (8 + 4 * C) + K * C * esize, 2 * N * K * C,
+                       rate)
+            entry["cases"][f"K={K}"] = case
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            print(f"[21 probes] (b) {name} K={K}: max |kernel - twin| "
+                  f"{err:.2e} of {scale:.3f}; kernel device "
+                  f"{case['device_ms']:.4f} ms, back to back "
+                  f"{case['ms']:.4f} ms, twin "
+                  f"{case['plain_ms']:.3f} ms, embedding_bag "
+                  f"{case['library_ms']:.4f} ms, bound "
+                  f"{case['bound_ms']:.4f} ms ({case['bound_by']})",
+                  flush=True)
+        head = entry["cases"][f"K={ONEHOT_KS[-1]}"]
+        for key in ("ms", "plain_ms", "library_ms", "device_ms", "bound_ms",
+                    "bound_by", "bytes", "flops"):
+            entry[key] = head[key]
+        records[name] = entry
+    return records
+
+
+def phase_probes(dev):
+    """Phase 21: K8 and K9 through their entry points, then against their
+    twins with their readings; returns {name: record}."""
+    import torch
+
+    from evdeblurnerf_torch.utils.precision import set_matmul_precision
+
+    set_matmul_precision("highest")
+    launches = _probe_entry_points()
+    timing = _load_tool("timing_torch")
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    records = {"place_rows": _probe_scatter(dev, g, timing)}
+    torch.cuda.empty_cache()
+    records.update(_probe_onehot(dev, g, timing))
+    torch.cuda.empty_cache()
+    for name, r in records.items():
+        r["launches"] = launches[name]
+    print("[21 probes] launches on the entry points: " + ", ".join(
+        f"{n} {k}" for n, k in launches.items()))
+    return records
+
+
 def main():
     try:
         import torch
@@ -4156,6 +4401,9 @@ def main():
                                                   exported["capture"])
         print(f"[20 captured render] script wall time after phase 20: "
               f"{time.perf_counter() - start:.1f} s")
+        probe_records = phase_probes(dev)
+        print(f"[21 probes] script wall time after phase 21: "
+              f"{time.perf_counter() - start:.1f} s")
         del sd, crf_sd, sd_serve, served, exported
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -4192,6 +4440,8 @@ def main():
         r["launches_cull_ab"] = cull_ab_launches.get(name, 0)
         r["launches_captured"] = capture_launches.get(name, 0)
         r["launches_render_captured"] = render_launches.get(name, 0)
+    # K8 and K9: the launches of their entry points (phase 21)
+    kernel_results.update(probe_records)
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in
                                   kernel_results.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ PyTorch twin beside it:
 * ``ops/line_matmul.py``: K6 ``line_grad`` (precision "highest" or
   "default") and ``line_grad_tables`` (three tables in one launch, counted
   as one ``line_grad``);
-* ``ops/tiled_gather.py``: K7 ``tiled_plane_gather``.
+* ``ops/tiled_gather.py``: K7 ``tiled_plane_gather``;
+* ``ops/probe_scatter.py``: K8 ``place_rows``;
+* ``ops/probe_onehot.py``: K9 ``onehot_lerp`` (counted apart over f32 and
+  over bf16 tiles).
 
 The wrapper asks :func:`wants_kernel`:
 
@@ -57,11 +60,13 @@ KERNELS = ("permute_lanes", "permute_lanes_bwd", "permute_lanes_3d",
            "permute_lanes_3d_bwd", "cdf_take", "triplane_features",
            "triplane_features_bwd", "line_grad", "tiled_plane_gather",
            "triplane_features_bf16", "triplane_features_bf16_compute",
-           "triplane_features_bwd_bf16")
+           "triplane_features_bwd_bf16", "place_rows", "onehot_lerp",
+           "onehot_lerp_bf16")
 # what one training step launches over f32 tables. K6 runs only behind a
 # K5 whose line tables pass a block's shared memory (the paper's fit, so K5
-# sums them itself); K7 lies on no model path and runs from its own entry
-# point, tools/bench_tiled_gather_torch.py
+# sums them itself); K7, K8 and K9 lie on no model path and run from their
+# own entry points, tools/bench_tiled_gather_torch.py,
+# tools/probe_scatter_torch.py and tools/probe_onehot_torch.py
 TRAIN_KERNELS = KERNELS[:7]
 # what one training step launches over bf16 tables (--triplane_bf16)
 BF16_TRAIN_KERNELS = KERNELS[:5] + ("triplane_features_bf16",

@@ -21,6 +21,13 @@ twice in a row. K7 multiplies and adds where
 its plain twin does (no FMA contraction) and must equal it bitwise, with
 exact zeros on the spilled rows.
 
+The probes: K8 moves bits and must equal its twin bitwise on every
+written row, colliding runs included (both leave the run of the highest
+index), each destination one whole run; refused offsets raise after the
+launch. K9 adds a row's two nonzero products on the tensor cores, whose
+accumulation need not round to nearest: within 1e-6 of the twin's largest
+magnitude, over bf16 and over f32 tiles (three TF32 products a product).
+
 bf16 tables: K4's bf16-row form (f32 math) and its bf16-compute form (the
 bf16 eval chain, every operation rounded where the twin's bf16 tensor
 operation rounds) must equal their twins bitwise in the vector and the
@@ -44,7 +51,8 @@ from evdeblurnerf_torch import kernels
 from evdeblurnerf_torch.models.renderer import RenderConfig
 from evdeblurnerf_torch.models.system import EvDeblurNeRF
 from evdeblurnerf_torch.ops import (fused_sample, lane_shuffle, line_matmul,
-                                   tiled_gather, triplane)
+                                   probe_onehot, probe_scatter, tiled_gather,
+                                   triplane)
 from evdeblurnerf_torch.utils.precision import set_matmul_precision
 
 pytestmark = pytest.mark.cuda
@@ -1042,3 +1050,58 @@ def test_captured_artifact_and_occupancy_equal_eager(dev):
     assert torch.equal(occ(), build_occ_grid(model))
     (graph,) = occ.graphs.values()
     assert graph.launches == {"triplane_features": 1}
+
+
+@pytest.mark.parametrize("N,K,W,group,draw", [
+    (65536, 65536, 128, 1, "permutation"), (65536, 16384, 128, 1, "colliding"),
+    (65536, 16384, 128, 8, "colliding"), (65536, 16384, 128, 64, "colliding"),
+    (65536, 131072, 128, 512, "permutation"),
+    (65536, 16384, 128, 512, "colliding"), (4096, 8192, 4, 1, "colliding"),
+    (3 * 1000, 6000, 12, 3, "colliding"), (8192, 65536, 256, 2048, "colliding"),
+])
+def test_place_rows_kernel_matches_plain(dev, N, K, W, group, draw):
+    g = torch.Generator(device=dev).manual_seed(N + group)
+    rows = torch.randn(N, W, generator=g, device=dev)
+    if draw == "permutation":
+        slots = torch.randperm(K // group, generator=g,
+                               device=dev)[:N // group]
+    else:
+        slots = torch.randint(0, K // group, (N // group,), generator=g,
+                              device=dev)
+    offsets = (slots * group).to(torch.int32)
+    kernels.reset_launches()
+    got = probe_scatter.place_rows(rows, offsets, K, group)
+    assert kernels.LAUNCHES["place_rows"] == 1
+    written = probe_scatter.written_runs(offsets, K, group)
+    rows_written = written.repeat_interleave(group)
+    want = probe_scatter.place_rows_plain(rows, offsets, K, group)
+    assert torch.equal(got[rows_written], want[rows_written])
+    assert torch.equal(probe_scatter.runs_match(got, rows, offsets, group),
+                       written)
+
+
+def test_place_rows_kernel_refuses_offsets(dev):
+    rows = torch.randn(64, 8, device=dev)
+    for bad in (3, -8, 64):
+        offsets = torch.tensor([0, 8, bad, 24, 32, 40, 48, 56],
+                               dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="1 offsets"):
+            probe_scatter.place_rows(rows, offsets, 64, 8)
+
+
+@pytest.mark.parametrize("N,K,C", [(1024, 256, 64), (1000, 100, 16),
+                                   (4097, 1024, 32), (300, 2, 128),
+                                   (65536, 4096, 64)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_onehot_lerp_kernel_matches_plain(dev, N, K, C, dt):
+    g = torch.Generator(device=dev).manual_seed(N + K + C)
+    idx = torch.randint(0, K - 1, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    frac = torch.rand(N, generator=g, device=dev)
+    tile = torch.randn(K, C, generator=g, device=dev).to(dt)
+    kernels.reset_launches()
+    got = probe_onehot.onehot_lerp(idx, frac, tile)
+    name = "onehot_lerp_bf16" if dt == torch.bfloat16 else "onehot_lerp"
+    assert kernels.LAUNCHES[name] == 1
+    want = probe_onehot.onehot_lerp_plain(idx, frac, tile)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())

@@ -86,7 +86,7 @@ def _spawn(tmp_path, setup, world, tp=1):
     path = str(tmp_path / "setup.pt")
     torch.save(setup, path)
     return pc.spawn(path, str(tmp_path / "out.pt"), world, tp=tp,
-                    timeout=300)
+                    device="cpu", timeout=300)
 
 
 def _assert_step_close(got, want, loss_rtol, grad_atol, grad_rtol):

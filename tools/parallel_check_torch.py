@@ -3,7 +3,7 @@
 group, for holding the parallel paths to the one-process path.
 
     python3 tools/parallel_check_torch.py SETUP OUT --rank R --world N \\
-        --port P [--tp K] [--device cpu|cuda|cuda:N] [--backend gloo|nccl]
+        --port P [--tp K] [--device cuda|cuda:N|cpu] [--backend gloo|nccl]
 
 ``SETUP`` is a ``torch.save`` of a dict (:func:`run` lists its keys): the
 model's configuration, a seed or weights, the global batch and the step's
@@ -16,8 +16,9 @@ with its kernel launches of the step, ms/step, peak memory and any module
 of jax or of the JAX package it loaded (none). A caller
 runs :func:`run` in its own process with no process group for the
 one-process result on the same inputs. :func:`spawn` starts the ranks
-and waits for them. The ranks join over gloo on the CPU, and on the card
-over NCCL unless ``--backend gloo`` (two ranks that share one card).
+and waits for them. The ranks run on the card unless ``--device cpu``;
+they join over gloo on the CPU, and on the card over NCCL unless
+``--backend gloo`` (two ranks that share one card).
 Imports only the port.
 """
 
@@ -207,7 +208,7 @@ def _sample(spec, device, layout):
 
 
 def spawn(setup_path: str, out_path: str, world: int, tp: int = 1,
-          device: str = "cpu", backend: str | None = None,
+          device: str = "cuda", backend: str | None = None,
           timeout: float = 600.0, env: dict | None = None):
     """Run the ``world`` ranks of this script on ``setup_path`` and wait;
     returns (rank 0's result, every rank's record). Raises with the
@@ -250,7 +251,7 @@ def spawn(setup_path: str, out_path: str, world: int, tp: int = 1,
     return torch.load(out_path, weights_only=False), records
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("setup")
     ap.add_argument("out")
@@ -258,9 +259,13 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None)
-    a = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    a = parse_args(argv)
 
     import torch
 

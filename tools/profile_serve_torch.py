@@ -58,7 +58,7 @@ def main(argv=None):
     pose = np.concatenate([np.eye(3), np.zeros((3, 1))], 1)[None]
     rays = pose_rays(pose, h, w, np.asarray(K), dev)[:args.chunk] \
         .contiguous()
-    out = {"card": bench_torch.card_line()}
+    out = {"card": timing_torch.card_line()}
     for name, bf16 in (("f32", False), ("bf16_chain", True)):
         r = serving.build_renderer(
             bench_torch.train_args(chunk=32768, triplane_bf16=bf16), sd, h,
