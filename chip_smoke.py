@@ -269,18 +269,24 @@ kernel and case, phase 8 a few):
     permutation into an output of N rows) and on colliding ones drawn as
     the tool draws them: bitwise equal to its twin on every written row
     (both leave the run of the highest index where runs collide), each
-    destination one whole run aimed at it; (b) K9 ``onehot_lerp`` at
-    1,048,576 points, C = 64, for each K over bf16 and f32 tiles, within
-    1e-6 of the twin's largest magnitude (the tensor core's accumulation
-    need not round to nearest); (d) for each, the kernel's time back to
-    back and its kernels' device time by name, the twin's, the library
+    destination one whole run aimed at it (runs of G < 8 copied 32 to a
+    warp, longer ones a warp a run); (b) K9 ``onehot_lerp`` (``wgmma``,
+    the tile streamed to clusters of two blocks) at 1,048,576 points, C =
+    64, for each K over bf16 and f32 tiles, within 1e-6 of the twin's
+    largest magnitude (the tensor core's accumulation need not round to
+    nearest), and the bytes of the packed tile a call reads from L2 with
+    their time at the device-memory rate (which the L2 exceeds) beside a
+    third of the operations bound; (d) for each, the kernel's time back
+    to back and its kernels' device time by name, the twin's, the library
     call's (``index_copy_`` on the permutation, where it computes the same
-    function; ``F.embedding_bag`` over the two rows a point selects) and
-    the bound: bytes over 3.35 TB/s (for K8 the runs that land, read and
-    written, and the offsets; its row in the JSON line is the permutation
-    at G = 1, where every run lands), and for K9 the larger of that and
-    2 N K C operations over 989 TFLOP/s (bf16) or 165 TFLOP/s (f32 by
-    three TF32 products a product, at 495).
+    function; ``F.embedding_bag`` over the two rows a point selects), the
+    bound (``ops/probe_scatter.py::bound``, ``ops/probe_onehot.py::bound``):
+    bytes over 3.35 TB/s (for K8 the runs that land, read and written, and
+    the offsets; its row in the JSON line is the permutation at G = 1,
+    where every run lands), and for K9 the larger of that and 2 N K C
+    operations over 989 TFLOP/s (bf16) or 165 TFLOP/s (f32 by three TF32
+    products a product, at 495), and the share of it the device time
+    reaches.
 
 The line before the last holds one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -4205,8 +4211,9 @@ def _probe_scatter_draw(rows, offsets, out_rows, group, timing, label,
         case["library_ms"] = cuda_ms(lambda: lib_out.index_copy_(0, dst,
                                                                  runs3))
         del lib_out
-    _set_bound(case, 2 * case["written_runs"] * group * W * 4
-               + case["runs"] * 4, 0)
+    _set_bound(case, ps.bound(case["written_runs"], case["runs"], group,
+                              W)["bytes"], 0)
+    case["share_of_bound"] = case["bound_ms"] / case["device_ms"]
     print(f"[21 probes] (a) place_rows {label}: bitwise equal to the twin "
           f"on the written rows ({case['written_runs']} of "
           f"{out_rows // group} destinations written); kernels' device "
@@ -4216,7 +4223,8 @@ def _probe_scatter_draw(rows, offsets, out_rows, group, timing, label,
           f"{plain_ms:.4f} ms, index_copy_ "
           + ("-" if case["library_ms"] is None
              else f"{case['library_ms']:.4f} ms")
-          + f", bound {case['bound_ms']:.4f} ms", flush=True)
+          + f", bound {case['bound_ms']:.4f} ms "
+          f"({100 * case['share_of_bound']:.1f}% of it)", flush=True)
     return case
 
 
@@ -4247,7 +4255,7 @@ def _probe_scatter(dev, g, timing):
         del perm, colliding
     head = entry["cases"]["G=1 permutation"]
     for key in ("ms", "plain_ms", "library_ms", "device_ms", "bound_ms",
-                "bound_by", "bytes"):
+                "bound_by", "bytes", "share_of_bound"):
         entry[key] = head[key]
     return entry
 
@@ -4266,7 +4274,7 @@ def _probe_onehot(dev, g, timing):
                             TF32X3_FLOPS_PER_S),
                            ("onehot_lerp_bf16", torch.bfloat16,
                             BF16_TC_FLOPS_PER_S)):
-        esize = torch.tensor([], dtype=dt).element_size()
+        bf16 = dt == torch.bfloat16
         entry = _kernel_entry("probe_onehot.cu", "tools/probe_onehot.py:25",
                               0.0, 0, 0, points=N, C=C, cases={})
         for K in ONEHOT_KS:
@@ -4298,8 +4306,14 @@ def _probe_onehot(dev, g, timing):
                 library_ms=cuda_ms(lambda: F.embedding_bag(
                     corners, tile, per_sample_weights=weights, mode="sum")),
                 max_abs_err=err, scale=scale, K=K)
-            _set_bound(case, N * (8 + 4 * C) + K * C * esize, 2 * N * K * C,
-                       rate)
+            bound = po.bound(N, K, C, bf16)
+            _set_bound(case, bound["bytes"], bound["flops"], rate)
+            case.update(share_of_bound=case["bound_ms"] / case["device_ms"],
+                        l2_tile_bytes=po.l2_tile_bytes(N, K, C, bf16))
+            case["l2_tile_ms_at_hbm"] = \
+                1e3 * case["l2_tile_bytes"] / HBM_BYTES_PER_S
+            check(case["bound_by"] == bound["bound_by"],
+                  f"K9 {name} K={K}: two bounds disagree")
             entry["cases"][f"K={K}"] = case
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             print(f"[21 probes] (b) {name} K={K}: max |kernel - twin| "
@@ -4308,11 +4322,16 @@ def _probe_onehot(dev, g, timing):
                   f"{case['ms']:.4f} ms, twin "
                   f"{case['plain_ms']:.3f} ms, embedding_bag "
                   f"{case['library_ms']:.4f} ms, bound "
-                  f"{case['bound_ms']:.4f} ms ({case['bound_by']})",
-                  flush=True)
+                  f"{case['bound_ms']:.4f} ms ({case['bound_by']}, "
+                  f"{100 * case['share_of_bound']:.1f}% of it); tile read "
+                  f"from L2 {case['l2_tile_bytes'] / 1e9:.3f} GB, "
+                  f"{case['l2_tile_ms_at_hbm']:.4f} ms at 3.35 TB/s against "
+                  f"a third of the operations bound "
+                  f"{bound['operations_ms'] / 3:.4f} ms", flush=True)
         head = entry["cases"][f"K={ONEHOT_KS[-1]}"]
         for key in ("ms", "plain_ms", "library_ms", "device_ms", "bound_ms",
-                    "bound_by", "bytes", "flops"):
+                    "bound_by", "bytes", "flops", "share_of_bound",
+                    "l2_tile_bytes"):
             entry[key] = head[key]
         records[name] = entry
     return records

@@ -14,10 +14,20 @@
 //   probe's N = 2,359,296 rows of W = 128. At the probe's own draw (K =
 //   262,144, about nine runs a destination) only the last run aimed at a
 //   destination lands: 2*(runs landing)*G*W*4 bytes plus the offsets.
-//   Design: one warp moves one run, or a piece of up to kPiece float4 of a
-//   long run, at a time (a grid-stride loop over the pieces): 16-byte
-//   loads and stores, neighbouring lanes on neighbouring addresses, a run
-//   being G*W*4 contiguous bytes on both sides; streaming hints (__ldcs,
+//   Design: latency, not bytes, sets the time of short runs: a run is
+//   a chain of two dependent loads (its offset, then its destination's
+//   winner) before its bytes move, or do not. So for runs of G < 8 rows
+//   (kBatchBelow) a warp takes 32 runs at once: each lane loads one
+//   offset (coalesced) and that run's winner, 32 independent chains in
+//   flight, and __ballot_sync picks the runs that land. Their (run,
+//   offset) pairs go into the warp's slice of shared memory, and the
+//   warp copies them as a flat list of 32-lane pieces, kInFlight pieces
+//   at a time: each lane's kInFlight 16-byte loads are all in flight
+//   before their stores. Longer runs keep one warp a run, or a piece of
+//   up to kPiece float4 of a long run, at a time (a grid-stride loop
+//   over the pieces), four loads in flight a lane. Both move 16-byte
+//   lanes, neighbouring lanes on neighbouring addresses, a run being
+//   G*W*4 contiguous bytes on both sides, with streaming hints (__ldcs,
 //   __stcs), since nothing is read twice. Rows are not staged: on this
 //   card a 512-byte row is one coalesced request, the unit the TPU's DMA
 //   engine needed a descriptor for.
@@ -40,6 +50,8 @@ namespace {
 
 constexpr int kPiece = 1024;     // float4 a warp moves per work item: 16 KiB
 constexpr int kWarps = evdn::kThreads / 32;
+constexpr int kBatchBelow = 8;   // runs of fewer rows go 32 to a warp
+constexpr int kInFlight = 8;     // loads a lane holds before its stores
 
 __global__ void __launch_bounds__(evdn::kThreads)
 place_rows_claim(const int32_t* __restrict__ offsets, int64_t runs, int group,
@@ -57,8 +69,66 @@ place_rows_claim(const int32_t* __restrict__ offsets, int64_t runs, int group,
   }
 }
 
-// Copies the runs that win their destination. q_row: float4 pieces of a
-// row, W / 4.
+// Copies the runs that win their destination, 32 runs a warp at once
+// (runs of fewer than kBatchBelow rows). q_row: float4 pieces of a row,
+// W / 4.
+__global__ void __launch_bounds__(evdn::kThreads)
+place_rows_copy_batch(const float4* __restrict__ rows,
+                 const int32_t* __restrict__ offsets,
+                 const int32_t* __restrict__ winner, float4* __restrict__ out,
+                 int64_t runs, int group, int64_t slots, int q_row) {
+  // each warp's landing runs of its current 32: (run, offset)
+  __shared__ int2 landing[kWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q_run = group * q_row;
+  const int pieces = (q_run + 31) / 32;     // 32-lane pieces a run
+  const int64_t batches = (runs + 31) / 32;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t bt = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+       bt < batches; bt += warps) {
+    const int64_t r = bt * 32 + lane;
+    int32_t off = 0;
+    bool lands = false;
+    if (r < runs) {
+      off = __ldg(offsets + r);
+      lands = off >= 0 && off % group == 0 && off / group < slots &&
+              __ldg(winner + off / group) == r + 1;
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, lands);
+    if (lands)
+      landing[warp][__popc(mask & ((1u << lane) - 1u))] =
+          make_int2(static_cast<int>(r), off);
+    __syncwarp();
+    const int items = __popc(mask) * pieces;
+    for (int it0 = 0; it0 < items; it0 += kInFlight) {
+      float4 v[kInFlight];
+      int64_t dst[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        dst[u] = -1;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        const int it = it0 + u;
+        if (it < items) {
+          const int k = it / pieces;
+          const int i = (it - k * pieces) * 32 + lane;
+          if (i < q_run) {
+            const int2 e = landing[warp][k];
+            v[u] = __ldcs(rows + static_cast<int64_t>(e.x) * q_run + i);
+            dst[u] = static_cast<int64_t>(e.y) * q_row + i;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (dst[u] >= 0) __stcs(out + dst[u], v[u]);
+    }
+    __syncwarp();           // the slice is rewritten by the next 32
+  }
+}
+
+// Copies the runs that win their destination, a warp a run or a piece of
+// one (runs of kBatchBelow rows or more). q_row: float4 pieces of a row,
+// W / 4.
 __global__ void __launch_bounds__(evdn::kThreads)
 place_rows_copy(const float4* __restrict__ rows,
                 const int32_t* __restrict__ offsets,
@@ -128,13 +198,21 @@ EVDN_API int evdn_place_rows(const float* rows, const int32_t* offsets,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int q_row = W / 4;
-  const int64_t pieces =
-      (static_cast<int64_t>(group) * q_row + kPiece - 1) / kPiece;
-  const unsigned int copy_grid = static_cast<unsigned int>(
-      std::min<int64_t>(evdn::blocks_for(runs * pieces, kWarps), resident));
   const float4* rows4 = reinterpret_cast<const float4*>(rows);
   float4* out4 = reinterpret_cast<float4*>(out);
-  place_rows_copy<<<copy_grid, evdn::kThreads, 0, stream>>>(
-      rows4, offsets, scratch, out4, runs, group, slots, q_row);
+  if (group < kBatchBelow) {
+    const unsigned int batch_grid = static_cast<unsigned int>(
+        std::min<int64_t>(evdn::blocks_for((runs + 31) / 32, kWarps),
+                          resident));
+    place_rows_copy_batch<<<batch_grid, evdn::kThreads, 0, stream>>>(
+        rows4, offsets, scratch, out4, runs, group, slots, q_row);
+  } else {
+    const int64_t pieces =
+        (static_cast<int64_t>(group) * q_row + kPiece - 1) / kPiece;
+    const unsigned int copy_grid = static_cast<unsigned int>(
+        std::min<int64_t>(evdn::blocks_for(runs * pieces, kWarps), resident));
+    place_rows_copy<<<copy_grid, evdn::kThreads, 0, stream>>>(
+        rows4, offsets, scratch, out4, runs, group, slots, q_row);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,8 +65,9 @@ SIGNATURES = {
     "evdn_tiled_plane_gather": (_P,) * 6 + (_L,) + (_I,) * 5 + (_I, _P),
     # rows, offsets, out, scratch, runs, group, slots, W, device, stream
     "evdn_place_rows": (_P,) * 4 + (_L, _I, _L, _I, _I, _P),
-    # idx, frac, tile, out, n, K, C, bf16 tile, device, stream
-    "evdn_onehot_lerp": (_P,) * 4 + (_L, _I, _I, _I, _I, _P),
+    # idx, frac, tile, packed tile, its bytes, out, n, K, C, bf16 tile,
+    # device, stream
+    "evdn_onehot_lerp": (_P,) * 4 + (_L, _P, _L, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -103,6 +103,19 @@ def place_rows(rows: torch.Tensor, offsets: torch.Tensor, K: int,
     return out
 
 
+# an H100 SXM's device-memory rate (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(landing: int, runs: int, group: int, W: int) -> dict:
+    """The least time the card could take for a call that places ``runs``
+    runs of ``group`` rows of ``W`` floats, of which ``landing`` land: the
+    landing runs read and written and every offset read, over the memory
+    rate (``bytes``, ``bound_ms``)."""
+    nbytes = 2 * landing * group * W * 4 + runs * 4
+    return dict(bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+
+
 def written_runs(offsets: torch.Tensor, K: int, group: int) -> torch.Tensor:
     """[K / G] bool: the destination runs some run is aimed at."""
     mask = torch.zeros(K // group, dtype=torch.bool, device=offsets.device)

@@ -272,12 +272,15 @@ def run_test_renders(args, llff, chunk_fn, crf, device, step, logger, expdir,
 
     metrics = {}
     for name in ("mse", "psnr", "ssim", "lpips"):
-        v = compute_img_metric(rgbs, gt, metric=name)
+        # LPIPS's AlexNet runs on the run's device, as the JAX package
+        # scores on its default one
+        v = compute_img_metric(rgbs, gt, metric=name, device=device)
         if v is not None:
             metrics[f"test/{name}"] = v
     # fallback-trunk LPIPS is not comparable to published LPIPS(alex): every
     # persisted copy (the scalars and the text file) says so
-    lpips_trunk = lpips_trunk_kind() if "test/lpips" in metrics else None
+    lpips_trunk = (lpips_trunk_kind(device) if "test/lpips" in metrics
+                   else None)
     if lpips_trunk == "fallback":
         metrics["test/lpips_trunk_fallback"] = 1.0
     logger.scalars(metrics, step)

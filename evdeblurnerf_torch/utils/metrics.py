@@ -4,9 +4,11 @@ Counterpart of ``evdeblurnerf_tpu/utils/metrics.py`` (ref:
 utils/metrics.py:18-100): inputs in [0, 1] are mapped to [-1, 1], an
 optional relative ``margin`` crops borders, masks restrict PSNR/SSIM to
 valid pixels. SSIM follows skimage with ``data_range=2.0`` (the [-1, 1]
-range older skimage assumed implicitly for float inputs). LPIPS runs on the
-CPU through ``models/lpips.py``'s default scorer; ``None`` means "metric
-unavailable" (no scorer could be built, or an image under 31 pixels).
+range older skimage assumed implicitly for float inputs). LPIPS runs through
+``models/lpips.py``'s default scorer on the device it is asked for (the
+CPU unless the caller names the run's device, as the training loop does);
+``None`` means "metric unavailable" (no scorer could be built, or an image
+under 31 pixels).
 """
 
 from __future__ import annotations
@@ -61,42 +63,41 @@ def structural_similarity(im1: np.ndarray, im2: np.ndarray,
     return float(interior.mean()), S
 
 
-_lpips_scorer = None
-_lpips_failed = False
+# the default scorer of each device (its str()), None where building failed
+_lpips_scorers: dict = {}
 
 
-def _get_lpips():
-    global _lpips_scorer, _lpips_failed
-    if _lpips_scorer is not None or _lpips_failed:
-        return _lpips_scorer
-    try:
-        from ..models.lpips import LPIPSScorer
+def _get_lpips(device="cpu"):
+    key = str(device)
+    if key not in _lpips_scorers:
+        try:
+            from ..models.lpips import LPIPSScorer
 
-        # always usable: an ImageNet bundle, else the documented
-        # deterministic-trunk fallback (warns once)
-        _lpips_scorer = LPIPSScorer.from_default()
-    except Exception:
-        _lpips_failed = True
-    return _lpips_scorer
+            # always usable: an ImageNet bundle, else the documented
+            # deterministic-trunk fallback (warns once)
+            _lpips_scorers[key] = LPIPSScorer.from_default(device)
+        except Exception:
+            _lpips_scorers[key] = None
+    return _lpips_scorers[key]
 
 
-def lpips_trunk_kind() -> Optional[str]:
+def lpips_trunk_kind(device="cpu") -> Optional[str]:
     """Which AlexNet trunk the LPIPS scorer runs on: ``"pretrained"``
     (ImageNet weights, published-comparable LPIPS(alex)), ``"fallback"``
     (the deterministic fixed-seed trunk: self-consistent, NOT comparable to
     published numbers) or ``None`` (no scorer). Whoever persists lpips
     values records this beside them."""
-    scorer = _get_lpips()
+    scorer = _get_lpips(device)
     if scorer is None:
         return None
     return "pretrained" if scorer.pretrained_trunk else "fallback"
 
 
 def compute_img_metric(im1, im2, metric: str = "mse", margin: float = 0,
-                       mask: Optional[np.ndarray] = None):
+                       mask: Optional[np.ndarray] = None, device="cpu"):
     """im1/im2: [H, W, 3] or [B, H, W, 3] in [0, 1]. Returns a python float
     (averaged over the batch), or None for lpips without a scorer or on
-    images under 31 pixels."""
+    images under 31 pixels. ``device``: where LPIPS's AlexNet runs."""
     im1 = np.asarray(im1, np.float32)
     im2 = np.asarray(im2, np.float32)
     if im1.ndim == 3:
@@ -138,7 +139,7 @@ def compute_img_metric(im1, im2, metric: str = "mse", margin: float = 0,
             if mask is not None:
                 v = (ssim_map * mask[i]).sum() / mask[i].sum()
         elif metric == "lpips":
-            scorer = _get_lpips()
+            scorer = _get_lpips(device)
             if scorer is None:
                 return None
             if min(a.shape[0], a.shape[1]) < 31:

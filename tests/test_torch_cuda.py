@@ -23,10 +23,16 @@ exact zeros on the spilled rows.
 
 The probes: K8 moves bits and must equal its twin bitwise on every
 written row, colliding runs included (both leave the run of the highest
-index), each destination one whole run; refused offsets raise after the
-launch. K9 adds a row's two nonzero products on the tensor cores, whose
-accumulation need not round to nearest: within 1e-6 of the twin's largest
-magnitude, over bf16 and over f32 tiles (three TF32 products a product).
+index), each destination one whole run, through its 32-runs-a-warp copy
+(G < 8: fewer runs than a warp's 32, a tail of them, rows of 4 and of 256
+floats, every run aimed at one destination) and its run-a-warp copy;
+refused offsets raise after the launch. K9 adds a row's two nonzero
+products on the tensor cores (``wgmma``), whose accumulation need not
+round to nearest: within 1e-6 of the twin's largest magnitude, over bf16
+and over f32 tiles (three TF32 products a product), at every width it
+takes, N off a block's and a cluster's rows, more row groups than
+resident clusters, K = 2 and K off a stage's rows, and every corner
+position of a tile.
 
 bf16 tables: K4's bf16-row form (f32 math) and its bf16-compute form (the
 bf16 eval chain, every operation rounded where the twin's bf16 tensor
@@ -1058,6 +1064,12 @@ def test_captured_artifact_and_occupancy_equal_eager(dev):
     (65536, 131072, 128, 512, "permutation"),
     (65536, 16384, 128, 512, "colliding"), (4096, 8192, 4, 1, "colliding"),
     (3 * 1000, 6000, 12, 3, "colliding"), (8192, 65536, 256, 2048, "colliding"),
+    # the 32-runs-a-warp copy: fewer runs than 32, a tail past 32, rows of
+    # 4 and 256 floats, every run aimed at one destination
+    (20, 64, 128, 1, "colliding"), (40, 64, 128, 1, "colliding"),
+    (32 * 1000 + 7, 70000, 4, 1, "permutation"),
+    (65536, 65536, 256, 1, "permutation"), (100, 4000, 256, 1, "colliding"),
+    (64, 64, 128, 1, "one"), (7 * 45, 7 * 9, 8, 7, "one"),
 ])
 def test_place_rows_kernel_matches_plain(dev, N, K, W, group, draw):
     g = torch.Generator(device=dev).manual_seed(N + group)
@@ -1065,6 +1077,8 @@ def test_place_rows_kernel_matches_plain(dev, N, K, W, group, draw):
     if draw == "permutation":
         slots = torch.randperm(K // group, generator=g,
                                device=dev)[:N // group]
+    elif draw == "one":
+        slots = torch.zeros(N // group, dtype=torch.long, device=dev)
     else:
         slots = torch.randint(0, K // group, (N // group,), generator=g,
                               device=dev)
@@ -1089,9 +1103,13 @@ def test_place_rows_kernel_refuses_offsets(dev):
             probe_scatter.place_rows(rows, offsets, 64, 8)
 
 
-@pytest.mark.parametrize("N,K,C", [(1024, 256, 64), (1000, 100, 16),
-                                   (4097, 1024, 32), (300, 2, 128),
-                                   (65536, 4096, 64)])
+@pytest.mark.parametrize("N,K,C", [
+    (1024, 256, 64), (1000, 100, 16), (4097, 1024, 32), (300, 2, 128),
+    (65536, 4096, 64),
+    # N off a block's and a cluster's rows; more row groups than resident
+    # clusters; K = 2; K off a stage's rows; a call of three rows
+    (769, 64, 64), (513, 33, 128), (200_000, 70, 128), (1_000_003, 5, 16),
+    (3, 2, 64), (4096, 2, 32), (70_000, 200, 64)])
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 def test_onehot_lerp_kernel_matches_plain(dev, N, K, C, dt):
     g = torch.Generator(device=dev).manual_seed(N + K + C)
@@ -1103,5 +1121,24 @@ def test_onehot_lerp_kernel_matches_plain(dev, N, K, C, dt):
     got = probe_onehot.onehot_lerp(idx, frac, tile)
     name = "onehot_lerp_bf16" if dt == torch.bfloat16 else "onehot_lerp"
     assert kernels.LAUNCHES[name] == 1
+    want = probe_onehot.onehot_lerp_plain(idx, frac, tile)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("C", probe_onehot.CHANNELS)
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_onehot_lerp_kernel_every_corner(dev, C, dt):
+    """Every first corner of a tile of 130 rows (past a stage's rows at
+    most widths and types) with fractions 0, 1 and between: each lands in
+    the right k-step and the right fragment register, across stage edges,
+    from a register's first column to the next step's first (a corner at a
+    step's last column)."""
+    K = 130
+    idx = torch.arange(K - 1, device=dev, dtype=torch.int32).repeat(6)
+    frac = torch.tensor([0.0, 1.0, 0.5, 0.25, 0.75, 1 / 3],
+                        device=dev).repeat_interleave(K - 1)
+    tile = torch.randn(K, C, generator=torch.Generator(device=dev)
+                       .manual_seed(C), device=dev).to(dt)
+    got = probe_onehot.onehot_lerp(idx, frac, tile)
     want = probe_onehot.onehot_lerp_plain(idx, frac, tile)
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())

@@ -505,6 +505,58 @@ def test_metrics_and_crf_on_renders_match_jax():
     np.testing.assert_allclose(out, a ** (1 / 2.2), rtol=1e-6)
 
 
+@pytest.mark.parametrize("device", [torch.device("cuda", 0),
+                                    torch.device("cpu")])
+def test_test_renders_score_lpips_on_the_run_device(tmp_path, monkeypatch,
+                                                     device):
+    """The held-out LPIPS is scored on the run's device: the loop builds the
+    default scorer there, as the JAX package scores on its default device
+    (a stand-in factory and render, so no card is touched)."""
+    from types import SimpleNamespace
+
+    from evdeblurnerf_torch.models import lpips as tlpips
+
+    built = []
+
+    class Scorer:
+        pretrained_trunk = False
+
+        def __call__(self, a, b):
+            return 0.25
+
+    def from_default(cls, dev="cpu"):
+        built.append(str(dev))
+        return Scorer()
+
+    monkeypatch.setattr(tlpips.LPIPSScorer, "from_default",
+                        classmethod(from_default))
+    monkeypatch.setattr(tmetrics, "_lpips_scorers", {})
+    rgbs = np.random.default_rng(0).uniform(0, 1, (2, 40, 48, 3)).astype(
+        np.float32)
+    monkeypatch.setattr(tloop, "_render", lambda *a, **k: (
+        rgbs, np.ones(rgbs.shape[:3], np.float32)))
+
+    class Crf(torch.nn.Module):
+        def encode_rgb(self, x, skip_learn_crf=False):
+            return x
+
+    class Logger:
+        def scalars(self, metrics, step):
+            pass
+
+        def image(self, *args):
+            pass
+
+    llff = SimpleNamespace(test_poses=np.zeros((2, 3, 4), np.float32),
+                           test_images=np.clip(rgbs + 0.05, 0, 1))
+    metrics = tloop.run_test_renders(SimpleNamespace(), llff, None, Crf(),
+                                     device, 5, Logger(), str(tmp_path),
+                                     False)
+    assert built == [str(device)]
+    assert metrics["test/lpips"] == pytest.approx(0.25)
+    assert metrics["test/lpips_trunk_fallback"] == 1.0
+
+
 def test_logger_streams_scalars_and_images(tmp_path):
     log = tlogger.Logger(str(tmp_path), "exp")
     log.scalars({"train/loss": 0.5, "train/psnr": 10.0}, 3)

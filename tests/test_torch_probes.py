@@ -409,3 +409,105 @@ def test_probe_files_import_no_jax_tool():
             r"^\s*(import|from)\s+(jax|evdeblurnerf_tpu|probe_scatter|"
             r"probe_onehot|tools\.probe_scatter|tools\.probe_onehot)\b",
             text, re.M), path
+
+
+def test_variant_bench_cases_are_the_probes():
+    """``tools/bench_kernel_variants_torch.py --kernels k8,k9`` times the
+    probes' own cases, so that two checkouts read in one call compare
+    what the tools report."""
+    bench = _tool("bench_kernel_variants_torch")
+    scatter = _tool("probe_scatter_torch")
+    onehot = _tool("probe_onehot_torch")
+    defaults = scatter.parse_args([])
+    assert (bench.K8_N, bench.K8_K, bench.K8_W) == (defaults.n, defaults.k,
+                                                    scatter.PROBE_W)
+    assert bench.K8_CASES == tuple((g, d) for g in scatter.GROUPS
+                                   for d in ("colliding", "permutation"))
+    assert (bench.K9_N, bench.K9_C) == (onehot.N_POINTS, onehot.CHANNELS)
+    assert bench.K9_CASES == tuple((K, dt) for K in onehot.TILE_ROWS
+                                   for dt in onehot.DTYPES)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("C", po.CHANNELS)
+def test_onehot_plan_pads_whole_stages(C, bf16):
+    """The kernel's geometry (the twin of ``Plan`` in
+    ``csrc/probe_onehot.cu``): the packed tile is whole stages of 128-byte
+    swizzled rows, at least K rows, one plane a bf16 tile and two (TF32 hi,
+    lo) an f32 one; rows a block in whole m64 tiles; the L2 bytes one pass
+    over the packed tile a cluster's group of rows."""
+    elem, planes = (2, 1) if bf16 else (4, 2)
+    for K in (2, 63, 64, 65, 256, 1000, 4096):
+        p = po.plan(K, C, bf16)
+        assert p["stage_k"] * elem % po.SWIZZLE_BYTES == 0
+        assert p["stages"] * p["stage_k"] >= K > (p["stages"] - 1) * \
+            p["stage_k"]
+        assert p["packed_bytes"] == p["stages"] * p["stage_k"] * C * elem * \
+            planes
+        assert p["packed_bytes"] // p["stages"] >= po.STAGE_TARGET
+        assert p["rows"] % 64 == 0
+        assert p["cluster_rows"] == po.CLUSTER * p["rows"]
+        N = 3 * p["cluster_rows"] + 1
+        assert po.l2_tile_bytes(N, K, C, bf16) == 4 * p["packed_bytes"]
+
+
+def test_probe_bounds_are_the_recorded_ones():
+    """The bounds the tools and ``chip_smoke.py`` hold the probes to, at
+    the probes' default sizes (bytes over 3.35 TB/s, K9's operations over
+    989 TFLOP/s in bf16 and 495 / 3 in f32, the larger)."""
+    expect = {(256, True): (0.0826, "bytes"), (1024, True): (0.1390,
+                                                             "operations"),
+              (4096, True): (0.5559, "operations"),
+              (256, False): (0.2082, "operations"),
+              (1024, False): (0.8330, "operations"),
+              (4096, False): (3.3319, "operations")}
+    for (K, bf16), (ms, by) in expect.items():
+        b = po.bound(1_048_576, K, 64, bf16)
+        assert b["flops"] == 2 * 1_048_576 * K * 64
+        assert round(b["bound_ms"], 4) == ms and b["bound_by"] == by
+    perm = ps.bound(2_359_296, 2_359_296, 1, 128)
+    assert perm["bytes"] == 2 * 2_359_296 * 512 + 2_359_296 * 4
+    assert round(perm["bound_ms"], 4) == 0.7240
+    assert round(ps.bound(262_104, 2_359_296, 1, 128)["bound_ms"], 4) == \
+        0.0829
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """The kernel's TF32 split of an f32 value: hi keeps 10 mantissa bits,
+    rounded to nearest with ties away from zero (``cvt.rna``), lo the
+    rest rounded the same way."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      3.0, -0.0], dtype=torch.float32)
+    hi, lo = po.tf32_split(x)
+    assert hi.tolist() == [1 + ulp, -(1 + ulp), 1.0, 3.0, 0.0]
+    g = torch.Generator().manual_seed(0)
+    v = torch.randn(100_000, generator=g) * 10 ** torch.randint(
+        -3, 4, (100_000,), generator=g).float()
+    hi, lo = po.tf32_split(v)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((v - hi).abs() <= v.abs() * 2.0 ** -11).all()
+    assert ((v.double() - hi.double() - lo.double()).abs()
+            <= v.abs().double() * 2.0 ** -21).all()
+
+
+def test_three_tf32_products_hold_the_f32_bound():
+    """The f32 kernel's arithmetic, three TF32 products a product (lo*hi +
+    hi*lo + hi*hi, exact in the tensor core's products), stays within the
+    1e-6 of the largest magnitude that the card holds K9 to, at the
+    probe's tile width and a K of its cases."""
+    rng = np.random.default_rng(0)
+    N, K, C = 4096, 1024, 64
+    idx = torch.from_numpy(rng.integers(0, K - 1, N).astype(np.int32))
+    frac = torch.from_numpy(rng.uniform(0, 1, N).astype(np.float32))
+    tile = torch.from_numpy(rng.normal(size=(K, C)).astype(np.float32))
+    want = po.onehot_lerp_plain(idx, frac, tile).double()
+    t_hi, t_lo = (p.double() for p in po.tf32_split(tile))
+    got = torch.zeros(N, C, dtype=torch.float64)
+    for corner, w in ((idx, 1.0 - frac), (idx + 1, frac)):
+        w_hi, w_lo = (p.double()[:, None] for p in po.tf32_split(w))
+        rows_hi, rows_lo = t_hi[corner.long()], t_lo[corner.long()]
+        got += w_lo * rows_hi + w_hi * rows_lo + w_hi * rows_hi
+    assert float((got - want).abs().max()) <= \
+        K9_F32_REL_TOL * float(want.abs().max())

@@ -37,6 +37,16 @@ and the bf16 eval chain's form (bf16 output), each in K4's two vector
 kernels: four channels a lane on 8-byte loads and eight on 16-byte loads,
 with whether the two agree bitwise.
 ``chip_smoke.py`` takes its K4, K5 and K6 inputs and times from here.
+K8 and K9 (``--kernels k8,k9``) run at their probes' cases (``K8_CASES``,
+``K9_CASES``, the tables of ``tools/probe_scatter_torch.py`` and
+``tools/probe_onehot_torch.py``): K8 ``place_rows`` on runs of G = 1, 8,
+64 and 512 rows of 128 floats, 2,359,296 rows, on the colliding draw into
+262,144 rows and on a permutation into 2,359,296 (its claim and copy by
+kernel name, beside ``index_copy_`` where it computes the same function),
+each output held to the placement rule; K9 ``onehot_lerp`` at 1,048,576
+points, C = 64, K = 256, 1024 and 4096 over bf16 and f32 tiles (device
+time of the kernels named "onehot", beside ``F.embedding_bag``), each
+held within 1e-6 of the twin's largest magnitude.
 
 Another version is another directory: an earlier commit unpacked with
 ``git archive <commit> evdeblurnerf_torch | tar -x -C build/parent``, or a
@@ -50,6 +60,7 @@ Usage (needs one CUDA card and nvcc), from the root of a checkout:
     python tools/bench_kernel_variants_torch.py --kernels k5,k6
     python tools/bench_kernel_variants_torch.py --kernels k4 --k4-unpacked
     python tools/bench_kernel_variants_torch.py --kernels k4 --k4-bf16
+    python tools/bench_kernel_variants_torch.py --kernels k8,k9
 """
 
 import argparse
@@ -90,8 +101,16 @@ K4_CASES = dict(
     K5_CASES,
     eval_coarse=("coarse", EVAL_RAYS * 64, "eval_rays"),
     eval_fine=("fine", EVAL_RAYS * 128, "eval_rays"))
+# the probes' cases: K8 (rows, output rows of the colliding draw, row
+# width; (G, draw)) and K9 (points, channels; (K, tile type))
+K8_N, K8_K, K8_W = 2_359_296, 262_144, 128
+K8_CASES = tuple((group, draw) for group in (1, 8, 64, 512)
+                 for draw in ("colliding", "permutation"))
+K9_N, K9_C = 1_048_576, 64
+K9_CASES = tuple((K, dt) for K in (256, 1024, 4096) for dt in ("bf16", "f32"))
 # in the kernels' names
 K4_KERNEL, K5_KERNEL, K6_KERNEL = "triplane_fwd", "triplane_bwd", "line_grad"
+K8_PARTS, K9_KERNEL = ("place_rows_claim", "place_rows_copy"), "onehot"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 
 
@@ -302,6 +321,69 @@ def time_k6(timing, idx, rows, D):
             D, W, device=rows.device).index_add_(0, idx64, rows)))
 
 
+def time_k8(timing, dev, g, group, draw):
+    """K8 at one probe case: held to the placement rule, its kernels'
+    device ms by name, ``index_copy_`` on the permutation."""
+    import torch
+
+    from evdeblurnerf_torch.ops import probe_scatter as ps
+
+    runs = K8_N // group
+    rows = torch.randn(K8_N, K8_W, generator=g, device=dev)
+    if draw == "permutation":
+        out_rows = K8_N
+        slots = torch.randperm(runs, generator=g, device=dev)
+    else:
+        out_rows = K8_K
+        slots = torch.randint(0, (K8_K - group) // group, (runs,),
+                              generator=g, device=dev)
+    offsets = (slots * group).to(torch.int32)
+    written = ps.written_runs(offsets, out_rows, group)
+    held = torch.equal(ps.runs_match(ps.place_rows(rows, offsets, out_rows,
+                                                   group),
+                                     rows, offsets, group), written)
+    split = timing.device_ms_by_name(
+        lambda: ps.place_rows(rows, offsets, out_rows, group), K8_PARTS)
+    rec = dict(held=held, claim_ms=split[K8_PARTS[0]],
+               copy_ms=split[K8_PARTS[1]], library_ms=None,
+               bound_ms=1e3 * (2 * int(written.sum()) * group * K8_W * 4
+                               + runs * 4) / HBM_BYTES_PER_S)
+    rec["device_ms"] = rec["claim_ms"] + rec["copy_ms"]
+    if draw == "permutation":
+        lib_out = torch.empty(runs, group, K8_W, device=dev)
+        dst, runs3 = offsets.long() // group, rows.view(runs, group, K8_W)
+        rec["library_ms"] = timing.cuda_ms(
+            lambda: lib_out.index_copy_(0, dst, runs3))
+    return rec
+
+
+def time_k9(timing, dev, g, K, dt):
+    """K9 at one probe case: held within 1e-6 of the twin's largest
+    magnitude, the device ms of its kernels, ``F.embedding_bag``."""
+    import torch
+    import torch.nn.functional as F
+
+    from evdeblurnerf_torch.ops import probe_onehot as po
+
+    idx = torch.randint(0, K - 1, (K9_N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    frac = torch.rand(K9_N, generator=g, device=dev)
+    tile = torch.randn(K, K9_C, generator=g, device=dev).to(
+        torch.bfloat16 if dt == "bf16" else torch.float32)
+    want = po.onehot_lerp_plain(idx, frac, tile)
+    err = float((po.onehot_lerp(idx, frac, tile) - want).abs().max())
+    held = err <= 1e-6 * float(want.abs().max())
+    del want
+    corners = torch.stack([idx, idx + 1], 1)
+    weights = torch.stack([1.0 - frac, frac], 1).to(tile.dtype)
+    return dict(
+        held=held, max_abs_err=err,
+        device_ms=timing.device_ms_by_name(
+            lambda: po.onehot_lerp(idx, frac, tile), (K9_KERNEL,))[K9_KERNEL],
+        library_ms=timing.cuda_ms(lambda: F.embedding_bag(
+            corners, tile, per_sample_weights=weights, mode="sum")))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
@@ -309,8 +391,8 @@ def main(argv=None):
                     help="the directory that holds the evdeblurnerf_torch "
                     "to time (default: this checkout)")
     ap.add_argument("--kernels", default="k7,k1",
-                    help="comma-separated choice of k7, k1, k4, k5, k6 "
-                    "(default: k7,k1)")
+                    help="comma-separated choice of k7, k1, k4, k5, k6, k8, "
+                    "k9 (default: k7,k1)")
     ap.add_argument("--k4-unpacked", action="store_true",
                     help="time K4 over texel-major unpacked tables as well")
     ap.add_argument("--k4-bf16", action="store_true",
@@ -320,8 +402,9 @@ def main(argv=None):
                     help="leave K7 out of the choice")
     opts = ap.parse_args(argv)
     chosen = set(opts.kernels.lower().split(","))
-    if chosen - {"k7", "k1", "k4", "k5", "k6"}:
-        ap.error(f"--kernels takes k7, k1, k4, k5, k6, got {opts.kernels}")
+    if chosen - {"k7", "k1", "k4", "k5", "k6", "k8", "k9"}:
+        ap.error(f"--kernels takes k7, k1, k4, k5, k6, k8, k9, got "
+                 f"{opts.kernels}")
     if opts.skip_k7:
         chosen.discard("k7")
 
@@ -410,6 +493,25 @@ def main(argv=None):
               f"index_add_ {t['library_ms']:.4f} ms", flush=True)
         del idx, rows
         torch.cuda.empty_cache()
+    broken = []
+    for group, draw in K8_CASES if "k8" in chosen else ():
+        t = time_k8(timing, dev, g, group, draw)
+        broken += [] if t["held"] else [f"K8 G={group} {draw}"]
+        lib = ("" if t["library_ms"] is None
+               else f", index_copy_ {t['library_ms']:.4f} ms")
+        print(f"K8 G={group} {draw}: kernels' device {t['device_ms']:.4f} ms "
+              f"(claim {t['claim_ms']:.4f}, copy {t['copy_ms']:.4f}){lib}, "
+              f"bound {t['bound_ms']:.4f} ms, placement rule "
+              f"{'held' if t['held'] else 'BROKEN'}", flush=True)
+        torch.cuda.empty_cache()
+    for K, dt in K9_CASES if "k9" in chosen else ():
+        t = time_k9(timing, dev, g, K, dt)
+        broken += [] if t["held"] else [f"K9 K={K} {dt}"]
+        print(f"K9 K={K} {dt}: kernels' device {t['device_ms']:.4f} ms, "
+              f"embedding_bag {t['library_ms']:.4f} ms, max |kernel - twin| "
+              f"{t['max_abs_err']:.2e} ({'held' if t['held'] else 'BEYOND'} "
+              f"1e-6 of the largest magnitude)", flush=True)
+        torch.cuda.empty_cache()
     for R, S in K1_SHAPES if "k1" in chosen else ():
         x = torch.randn(R, S, generator=g, device=dev)
         _, perm, inv = lane_shuffle.sort_with_perm(
@@ -423,6 +525,9 @@ def main(argv=None):
             print(f"{label} [{R}, {S}]: device {device_ms:.4f} ms, L2 "
                   f"flushed {cold_ms:.4f} ms, host {host_us:.1f} us/call, "
                   f"back to back {timing.cuda_ms(fn):.4f} ms", flush=True)
+    if broken:
+        raise SystemExit(f"bench_kernel_variants_torch: {', '.join(broken)} "
+                         "left the twin")
 
 
 if __name__ == "__main__":

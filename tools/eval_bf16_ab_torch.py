@@ -97,7 +97,8 @@ def main(argv=None):
         renders[arm] = rgbs
         arms[arm] = {name: float(v) for name in ("mse", "psnr", "ssim",
                                                  "lpips")
-                     if (v := compute_img_metric(rgbs, gt, metric=name))
+                     if (v := compute_img_metric(rgbs, gt, metric=name,
+                                                 device=device))
                      is not None}
         del field
     pix = np.abs(renders["bf16"].astype(np.float64)

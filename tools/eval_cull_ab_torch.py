@@ -134,7 +134,8 @@ def compare(argv=None):
         renders[arm] = rgbs
         arms[arm] = {name: float(v) for name in ("mse", "psnr", "ssim",
                                                  "lpips")
-                     if (v := compute_img_metric(rgbs, gt, metric=name))
+                     if (v := compute_img_metric(rgbs, gt, metric=name,
+                                                 device=run.device))
                      is not None}
         arms[arm]["render_s"] = secs
         arms[arm]["launches"] = {k: v for k, v in kernels.LAUNCHES.items()

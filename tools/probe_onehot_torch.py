@@ -5,10 +5,13 @@
 Kernel K9 (``evdeblurnerf_torch/ops/probe_onehot.py::onehot_lerp``) builds
 a two-corner tent-weight one-hot of K columns for each of N = 1,048,576
 points in registers and contracts it with a [K, 64] tile on the tensor
-cores, for K = 256, 1024 and 4096 and tiles in bf16 and f32: the cost a
-point of the one-hot build and the contraction, against the row gather it
-would replace, ``F.embedding_bag`` over the two rows a point selects with
-their two weights (one PyTorch call; over a bf16 tile it returns bf16).
+cores by ``wgmma`` (f32 tiles as three TF32 products), the tile packed
+once into its swizzled shared-memory image and streamed to clusters of
+two blocks, for K = 256, 1024 and 4096 and tiles in bf16 and f32: the
+cost a point of the one-hot build and the contraction, against the row
+gather it would replace, ``F.embedding_bag`` over the two rows a point
+selects with their two weights (one PyTorch call; over a bf16 tile it
+returns bf16).
 The JAX tool's block height (256 or 1024 points) is the TPU's and is
 dropped. Each case's output is held to the plain twin (within 1e-6 of the
 largest magnitude), and its inputs are drawn with
@@ -16,11 +19,17 @@ largest magnitude), and its inputs are drawn with
 the fractions in [0, 1), the tile standard normal.
 
 On the card a time is the mean of CUDA events over calls queued back to
-back, beside the kernel's own device time from ``torch.profiler`` (CUPTI,
-by kernel name; ``tools/timing_torch.py::device_ms_by_name``), printed
-first unless the profiler kept no whole trace (then "not measured"); on
-the CPU the host clock. Per case it prints ms and ns a point with the gather's time beside, then one
-JSON line.
+back, beside the kernels' own device time from ``torch.profiler`` (CUPTI,
+by kernel name; ``tools/timing_torch.py::device_ms_by_name``): the pack
+of the tile and the contraction, printed first unless the profiler kept
+no whole trace (then "not measured"); on the CPU the host clock. Per case
+it prints ms and ns a point with the gather's time beside, the share of
+the bound (``probe_onehot.bound``: bytes over 3.35 TB/s or 2 N K C
+operations over the tensor cores' rate, the larger), and the bytes of
+the packed tile the call reads from L2 (``probe_onehot.l2_tile_bytes``):
+their time at the device-memory rate of 3.35 TB/s, which the L2 exceeds,
+beside a third of the operations bound, and the rate at which the call
+read them; then one JSON line.
 
     python3 tools/probe_onehot_torch.py [--iters 3] [--tiny]
         [--device cuda|cpu]
@@ -62,6 +71,9 @@ def draw_case(rng, N, K, C, dt):
     return idx, frac, tile
 
 
+DEVICE_PARTS = ("onehot_pack", "onehot_kernel")     # the kernels a call runs
+
+
 def probe_case(N, K, dt, rng, device, ms, iters):
     """K9 on one tile size and type; returns the case's record."""
     import torch
@@ -79,7 +91,9 @@ def probe_case(N, K, dt, rng, device, ms, iters):
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     del got, want
-    rec = dict(max_abs_err=err, scale=scale, held=err <= REL_TOL * scale)
+    rec = dict(max_abs_err=err, scale=scale, held=err <= REL_TOL * scale,
+               **po.bound(N, K, CHANNELS, dt == "bf16"),
+               l2_tile_bytes=po.l2_tile_bytes(N, K, CHANNELS, dt == "bf16"))
 
     def kernel():
         return po.onehot_lerp(idx, frac, tile)
@@ -92,18 +106,34 @@ def probe_case(N, K, dt, rng, device, ms, iters):
     t, note = rec["ms"], ""
     if device.type == "cuda":
         try:
-            t = rec["device_ms"] = timing_torch.device_ms_by_name(
-                kernel, ("onehot",), iters=iters, warmup=1)["onehot"]
+            parts = timing_torch.device_ms_by_name(
+                kernel, DEVICE_PARTS, iters=iters, warmup=1)
+            rec["device_ms_parts"] = {k: parts[k] for k in DEVICE_PARTS}
+            t = rec["device_ms"] = sum(rec["device_ms_parts"].values())
+            note = (f", pack {parts['onehot_pack']:.4f} ms, contraction "
+                    f"{parts['onehot_kernel']:.4f} ms")
         except RuntimeError:    # the profiler kept no whole trace
             rec["device_ms"] = None
             note = ", device time not measured"
     rec["ns_per_pt"] = t / N * 1e6
-    print(f"K={K:5d} C={CHANNELS} {dt:4s}: {t:7.3f} ms for {N} pts "
+    card = ""
+    if device.type == "cuda":    # the bound and L2 are the card's
+        rec["share_of_bound"] = rec["bound_ms"] / t
+        rec["l2_tile_ms_at_hbm"] = 1e3 * rec["l2_tile_bytes"] / \
+            po.HBM_BYTES_PER_S
+        card = (f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                f"{100 * rec['share_of_bound']:.1f}% of it; tile read from "
+                f"L2 {rec['l2_tile_bytes'] / 1e9:.3f} GB at "
+                f"{rec['l2_tile_bytes'] / (t * 1e-3) / 1e12:.2f} TB/s, "
+                f"{rec['l2_tile_ms_at_hbm']:.4f} ms at 3.35 TB/s against a "
+                f"third of the operations bound "
+                f"{rec['operations_ms'] / 3:.4f} ms")
+    print(f"K={K:5d} C={CHANNELS} {dt:4s}: {t:7.4f} ms for {N} pts "
           f"({rec['ns_per_pt']:6.3f} ns/pt{note}); back to back "
-          f"{rec['ms']:.3f} "
-          f"ms; embedding_bag {rec['library_ms']:.3f} ms "
-          f"({rec['library_ms'] / N * 1e6:6.3f} ns/pt); max |kernel - twin| "
-          f"{err:.2e} of {scale:.3f}", flush=True)
+          f"{rec['ms']:.4f} "
+          f"ms; embedding_bag {rec['library_ms']:.4f} ms "
+          f"({rec['library_ms'] / N * 1e6:6.3f} ns/pt){card}; max |kernel - "
+          f"twin| {err:.2e} of {scale:.3f}", flush=True)
     return rec
 
 

@@ -18,8 +18,12 @@ B/C. Kernel K8 (``evdeblurnerf_torch/ops/probe_scatter.py::place_rows``),
    computes the same function. Each draw's output is held to the
    placement rule (every destination holds, bit for bit, one run aimed at
    it; ``runs_match``); beside the kernel's time stand its plain twin's,
-   ``index_copy_``'s on the permutation, and the bound: the bytes of the
-   runs that land, read and written, and of the offsets over 3.35 TB/s.
+   ``index_copy_``'s on the permutation, and the bound
+   (``probe_scatter.bound``: the bytes of the runs that land, read and
+   written, and of the offsets over 3.35 TB/s) with the share of it the
+   kernels reach on the card. Runs of fewer than 8 rows are copied 32 to a
+   warp, longer ones a warp a run (``csrc/probe_scatter.cu``); the copy's
+   device time sums whichever ran.
 
 The data are drawn as the JAX tool draws them, with
 ``np.random.default_rng(0)`` in the same order (A's rows, keys and table
@@ -137,9 +141,7 @@ def time_draw(rows, offsets, K, group, device, ms, iters, library):
     del out
     landing = int(written.sum())
     rec = dict(runs=N // group, written_runs=landing, collision_rule=held,
-               # the runs that land read and written, the offsets read
-               bytes=2 * landing * group * PROBE_W * 4 + N // group * 4)
-    rec["bound_ms"] = 1e3 * rec["bytes"] / timing_torch.HBM_BYTES_PER_S
+               **ps.bound(landing, N // group, group, PROBE_W))
 
     def kernel():
         return ps.place_rows(rows, offsets, K, group)
@@ -161,6 +163,8 @@ def time_draw(rows, offsets, K, group, device, ms, iters, library):
     rec["ns_per_row"] = t / N * 1e6
     # the bytes the function moves: the runs that land, and the offsets
     rec["gb_per_s"] = rec["bytes"] / (t * 1e-3) / 1e9
+    if device.type == "cuda":
+        rec["share_of_bound"] = rec["bound_ms"] / t
     return rec
 
 
@@ -201,7 +205,9 @@ def probe_case(N, K, group, rng, device, ms, iters):
               f"GB/s of the runs that land"
               f"{note(rec, device)}); "
               f"back to back {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
-              f"ms{lib}, bound {rec['bound_ms']:.3f} ms; "
+              f"ms{lib}, bound {rec['bound_ms']:.4f} ms"
+              + (f" ({100 * rec['share_of_bound']:.1f}% of it)"
+                 if "share_of_bound" in rec else "") + "; "
               f"{rec['written_runs']} of {out_rows // group} destination "
               f"runs written, collision rule "
               f"{'held' if rec['collision_rule'] else 'BROKEN'}",
